@@ -1,0 +1,338 @@
+"""Drive the PyTorch port (mpi4dl_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --profile out.txt  # also profile one step, table to out.txt
+
+Phases; any failure ends the run with a non-zero exit and nothing is caught:
+
+1. Build: compile the port's CUDA kernels from ``mpi4dl_tpu_torch/csrc``
+   with nvcc; print the build seconds and the card's name and power limit.
+2. Kernels: hold K1 (halo conv), K2 (fused relu→conv→BN-stats) and K1 as
+   the dx of K2's backward against their plain PyTorch versions on the card,
+   at the eight shapes of the main path (bf16) and at one fp32 ragged-tail
+   shape; time kernel, plain version and (K1) ``F.conv2d`` with CUDA events.
+   TF32 is off.  Tolerances: fp32 ≤ 8 scaled ULP (the JAX test's metric,
+   tests/test_pallas_conv.py:401-453).  bf16: both sides accumulate in fp32
+   and round once, so an output may differ by one bf16 ULP where the two
+   fp32 sums straddle a rounding boundary: |Δy| ≤ 2^-7·max|y|, and for the
+   fp32 statistics of the cast y |Δsum| ≤ 2^-7·Σ|y|, |Δsumsq| ≤ 2^-6·Σy².
+3. Slice: full-width AmoebaNet-D(18 layers, 416 filters), 1024², batch 1,
+   bf16 compute, fp32 params, SGD lr 1e-3, fused kernels on, remat off:
+   1 warm-up and 3 timed steps with finite losses and exactly 80 K2 and 80
+   K1 launches per step; img/s and peak memory.  Then AmoebaNet-D(3, 416)
+   at 256² from one seed: one step through the kernels and one through the
+   plain (unfused, library-conv) path; the losses agree within rtol 1e-2
+   (bf16 keeps 8 bits, and the two paths round conv outputs after
+   different fp32 summation orders, so one-ULP flips compound over cells).
+4. The kernels' JSON line, the card line, and last the result line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+
+# The main path's K2 / K1-dx calls per training step: (H = W, m = Cin =
+# Cout, kernel, calls) at AmoebaNet-D(18, 416), 1024², batch 1.
+MAIN_PATH = [
+    (256, 52, (1, 7), 1), (256, 52, (7, 1), 1),
+    (128, 104, (1, 7), 13), (128, 104, (7, 1), 13),
+    (64, 208, (1, 7), 13), (64, 208, (7, 1), 13),
+    (32, 416, (1, 7), 13), (32, 416, (7, 1), 13),
+]
+K1_SRC = "mpi4dl_tpu/ops/pallas_conv.py:41"
+K2_SRC = "mpi4dl_tpu/ops/pallas_conv.py:106"
+SOURCE = "mpi4dl_tpu_torch/csrc/halo_conv.cu"
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 10) -> float:
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def scaled_ulp(got, ref) -> float:
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    assert scale > 0
+    return float((got - ref).abs().max()) / (2.0 ** -23 * scale)
+
+
+def check_bf16(name, got, ref) -> float:
+    err = float((got.float() - ref.float()).abs().max())
+    bound = 2.0 ** -7 * float(ref.float().abs().max())
+    assert err <= bound, f"{name}: |err| {err} > {bound}"
+    return err
+
+
+def check_stats_bf16(name, s, ss, s_ref, ss_ref, y_ref) -> None:
+    yw = y_ref.float()
+    es = float((s - s_ref).abs().max())
+    ess = float((ss - ss_ref).abs().max())
+    bs = 2.0 ** -7 * float(yw.abs().sum(dim=(0, 1, 2)).max())
+    bss = 2.0 ** -6 * float((yw * yw).sum(dim=(0, 1, 2)).max())
+    assert es <= bs, f"{name} sum: {es} > {bs}"
+    assert ess <= bss, f"{name} sumsq: {ess} > {bss}"
+
+
+def call_cost(x, w, y_shape, stats: bool):
+    """(bytes, flops) of one call: each input read once, each output written
+    once; 2 flops per multiply-add."""
+    n, h, wd, cout = y_shape
+    kh, kw, cin, _ = w.shape
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + n * h * wd * cout * x.element_size() + (8 * cout if stats else 0))
+    return nbytes, 2 * n * h * wd * cin * cout * kh * kw
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    bf = torch.bfloat16
+
+    # fp32 ragged tails: the kernel registry's conv case.
+    x = torch.randn((1, 130, 258, 8), generator=gen, device=dev)
+    w = torch.randn((3, 3, 8, 300), generator=gen, device=dev) / 9
+    win = (1, 127, 2, 254)
+    got = hc.halo_conv2d(x, w, fuse_relu=True, stat_window=win)
+    ref = hc.halo_conv2d_plain(x, w, fuse_relu=True, stat_window=win)
+    for name, g, r in zip(("y", "sum", "sumsq"), got, ref):
+        u = scaled_ulp(g, r)
+        assert u <= 8.0, f"K2 fp32 ragged {name}: {u} scaled ULP"
+    u = scaled_ulp(hc.halo_conv2d(x, w), hc.halo_conv2d_plain(x, w))
+    assert u <= 8.0, f"K1 fp32 ragged: {u} scaled ULP"
+    torch.cuda.synchronize()
+    print("kernels: fp32 ragged (1,130,258,8) x (3,3,8,300): K1, K2 within 8 scaled ULP",
+          flush=True)
+
+    tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0, err=0.0)
+           for k in ("K1", "K2")}
+    for hw, m, (kh, kw), calls in MAIN_PATH:
+        tag = f"{hw}x{hw} m={m} {kh}x{kw}"
+        bound = 1.0 / math.sqrt(m * kh * kw)
+        xp = torch.randn((1, hw + kh - 1, hw + kw - 1, m), generator=gen, device=dev).to(bf)
+        wk = ((torch.rand((kh, kw, m, m), generator=gen, device=dev) * 2 - 1) * bound).to(bf)
+        full = (0, hw, 0, hw)
+        # K2 as the forward of a fused window.
+        y, s, ss = hc.halo_conv2d(xp, wk, fuse_relu=True, stat_window=full)
+        yr, sr, ssr = hc.halo_conv2d_plain(xp, wk, fuse_relu=True, stat_window=full)
+        e2 = check_bf16(f"K2 {tag} y", y, yr)
+        check_stats_bf16(f"K2 {tag}", s, ss, sr, ssr, yr)
+        # K1 as the forward conv, and as K2's dx: the padded cotangent with
+        # the flipped, io-swapped kernel.
+        e1 = check_bf16(f"K1 {tag} fwd", hc.halo_conv2d(xp, wk), hc.halo_conv2d_plain(xp, wk))
+        ct = torch.randn((1, hw, hw, m), generator=gen, device=dev).to(bf)
+        ctp = hc.pad_hw(ct, kh - 1, kw - 1)
+        wt = hc._flip_swap(wk)
+        dx = hc.halo_conv2d(ctp, wt)
+        e1 = max(e1, check_bf16(f"K1 {tag} dx", dx, hc.halo_conv2d_plain(ctp, wt)))
+        torch.cuda.synchronize()
+        k2 = time_ms(lambda: hc.halo_conv2d(xp, wk, fuse_relu=True, stat_window=full))
+        p2 = time_ms(lambda: hc.halo_conv2d_plain(xp, wk, fuse_relu=True, stat_window=full))
+        k1 = time_ms(lambda: hc.halo_conv2d(ctp, wt))
+        p1 = time_ms(lambda: hc.halo_conv2d_plain(ctp, wt))
+        ctp_nchw, wt_oihw = ctp.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
+        l1 = time_ms(lambda: F.conv2d(ctp_nchw, wt_oihw))
+        b2, f2 = call_cost(xp, wk, y.shape, True)
+        b1, f1 = call_cost(ctp, wt, dx.shape, False)
+        for key, ms, pms, lms, nb, fl, err in (("K2", k2, p2, 0.0, b2, f2, e2),
+                                               ("K1", k1, p1, l1, b1, f1, e1)):
+            t = tot[key]
+            t["ms"] += calls * ms
+            t["plain_ms"] += calls * pms
+            t["library_ms"] += calls * lms
+            t["bytes"] += calls * nb
+            t["flops"] += calls * fl
+            t["err"] = max(t["err"], err)
+            bound_us = 1e6 * max(nb / HBM_BYTES_PER_S, fl / PEAK_BF16_FLOPS)
+            lib = f" F.conv2d {lms:.4f} ms" if key == "K1" else ""
+            print(f"kernels: {key} {tag} x{calls}/step: kernel {ms:.4f} ms  plain "
+                  f"{pms:.4f} ms{lib}  bound {bound_us:.2f} us  "
+                  f"{fl / ms / 1e9:.1f} TFLOP/s  max|err| {err:.3g}", flush=True)
+    return tot
+
+
+def phase_slice():
+    import torch
+
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    shape = (1, 1024, 1024, 3)
+    model = amoebanetd(shape, num_classes=1000, num_layers=18, num_filters=416,
+                       device=dev, seed=0)
+    opt = Optimizer("sgd", lr=1e-3)
+    step = make_train_step(model, opt, compute_dtype=torch.bfloat16, remat=False,
+                           pallas_conv=True)
+    state = TrainState.create(model, opt)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn(shape, generator=gen, device=dev)
+    y = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hc.reset_launch_counts()
+    times = []
+    for i in range(4):
+        before = dict(hc.LAUNCHES)
+        t0 = time.perf_counter()
+        state, m = step(state, x, y)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        d2 = hc.LAUNCHES["halo_conv2d_stats"] - before["halo_conv2d_stats"]
+        d1 = hc.LAUNCHES["halo_conv2d"] - before["halo_conv2d"]
+        print(f"slice: step {i} loss {loss:.6f} {times[-1] * 1e3:.1f} ms "
+              f"K2 {d2} K1 {d1} launches", flush=True)
+        assert math.isfinite(loss), f"step {i}: loss {loss}"
+        assert d2 == 80 and d1 == 80, f"step {i}: K2 {d2}, K1 {d1} launches (want 80, 80)"
+    launches = dict(hc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ips = 3 / sum(times[1:])
+    print(f"slice: AmoebaNet-D(18,416) 1024^2 bs1 bf16: {ips:.3f} img/s "
+          f"({1e3 * sum(times[1:]) / 3:.1f} ms/step), peak {peak / 2**30:.2f} GiB",
+          flush=True)
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+
+    # Reduced depth: the kernels against the plain (unfused) path.
+    small = (1, 256, 256, 3)
+    xs = torch.randn(small, generator=gen, device=dev)
+    ys = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    losses = []
+    for fused in (True, False):
+        mdl = amoebanetd(small, num_classes=1000, num_layers=3, num_filters=416,
+                         device=dev, seed=0)
+        o = Optimizer("sgd", lr=1e-3)
+        st = make_train_step(mdl, o, compute_dtype=torch.bfloat16, pallas_conv=fused)
+        _, mm = st(TrainState.create(mdl, o), xs, ys)
+        losses.append(float(mm["loss"]))
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"slice: AmoebaNet-D(3,416) 256^2 bf16 loss kernels {losses[0]:.6f} "
+          f"plain {losses[1]:.6f} rel {rel:.2e}", flush=True)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert rel <= 1e-2, f"fused vs plain loss rel {rel}"
+    return launches
+
+
+def profile_step(path: str) -> None:
+    """One profiled full-width step: device time by kernel name."""
+    import torch
+
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    shape = (1, 1024, 1024, 3)
+    model = amoebanetd(shape, num_classes=1000, num_layers=18, num_filters=416,
+                       device=dev, seed=0)
+    opt = Optimizer("sgd", lr=1e-3)
+    step = make_train_step(model, opt, compute_dtype=torch.bfloat16, pallas_conv=True)
+    state = TrainState.create(model, opt)
+    x = torch.randn(shape, device=dev)
+    y = torch.zeros((1,), dtype=torch.long, device=dev)
+    for _ in range(2):
+        step(state, x, y)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
+    # Kernel time only, as the table's own total counts it: CUDA events
+    # that are not the cellNN annotation ranges.
+    busy_us = sum(e.self_device_time_total for e in avgs
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(table)
+    print(table, flush=True)
+    print(f"profile: step {wall_us / 1e3:.1f} ms wall, device busy "
+          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%)", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="PATH",
+                    help="profile one full-width step; write its table to PATH")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mpi4dl_tpu_torch.ops import _build
+
+    secs = _build.build_kernels(verbose=True)
+    card = card_line()
+    print(f"build: {secs:.1f} s on {card}", flush=True)
+    tot = phase_kernels()
+    launches = phase_slice()
+    if args.profile:
+        profile_step(args.profile)
+    entries = []
+    for key, name, src, count in (
+        ("K1", "halo_conv2d", K1_SRC, "halo_conv2d"),
+        ("K2", "halo_conv2d_stats", K2_SRC, "halo_conv2d_stats"),
+    ):
+        t = tot[key]
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S
+        t_ops = t["flops"] / PEAK_BF16_FLOPS
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": src,
+            "launches": launches[count], "max_abs_err": t["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": t["library_ms"] if key == "K1" else None,
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

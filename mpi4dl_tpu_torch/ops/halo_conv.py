@@ -1,0 +1,258 @@
+"""Halo-consuming convolution: kernels K1 and K2 — the counterpart of
+``mpi4dl_tpu/ops/pallas_conv.py``.
+
+The op is a stride-1 VALID conv that consumes a margin present in advance
+(halo-exchanged under spatial parallelism, ``F.pad`` on one device):
+``x [N, H+kh-1, W+kw-1, Cin]``, ``w [kh, kw, Cin, Cout]`` → ``[N, H, W, Cout]``,
+
+    out[n, y, x, :] = Σ_{dy, dx} X[n, y+dy, x+dx, :] @ W[dy, dx]
+
+- **K1**, :func:`halo_conv2d` — replaces ``pallas_conv.py::_kernel`` (:41,
+  ``pallas_call`` :346).  fp32 or bf16 in, fp32 accumulation, cast to
+  ``out_dtype``; ``fuse_relu`` applies ReLU to the input as it loads.
+- **K2**, :func:`halo_conv2d` with ``stat_window=(h0, h1, w0, w1)`` —
+  replaces ``pallas_conv.py::_kernel_stats`` (:106, ``pallas_call`` :364):
+  K1 plus fp32 per-channel sum and sum of squares of the output AFTER its
+  cast, over the static window in output coordinates.
+
+Both are one templated CUDA kernel for ``sm_90a``
+(``csrc/halo_conv.cu``, built by ``ops/_build.py``, bound through ctypes).
+Bound on an H100 SXM at the main path's shapes (1x7/7x1, m ∈ {52, 104, 208,
+416}, bf16): 2.48 GFLOP a call, 2.5 µs at the 989 TFLOP/s bf16 peak; 4-14 MB
+a call, 1.3-4.1 µs at 3.35 TB/s.  The design streams Cin through shared
+memory in fixed chunks, so its footprint does not depend on the conv's
+channels or kernel size and every stride-1 conv fits (no counterpart of the
+TPU VMEM caps in ``pallas_conv_eligible``); the source says more.
+
+Beside the kernel, :func:`halo_conv2d_plain` computes the same function in
+plain PyTorch.  The wrapper takes it only for CPU tensors; for a CUDA tensor
+it launches the kernel or raises.  :data:`LAUNCHES` counts the launches of
+each kernel.
+
+:func:`halo_conv2d_t` and :func:`fused_relu_conv_bn_t` are the trainable
+forms (``torch.autograd.Function``), whose backward follows
+``pallas_conv.py:426-448`` and ``:487-515``: dx is K1 on the padded
+cotangent with the flipped, io-swapped kernel; dw is the library's
+backprop-filter (``torch.nn.grad.conv2d_weight``), as the JAX package
+leaves dw to XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# Launches of each kernel, counted by the wrapper where it launches and
+# nowhere else (CPU tensors never launch).
+LAUNCHES = {"halo_conv2d": 0, "halo_conv2d_stats": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def pad_hw(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Zero-pad H and W of an NHWC tensor symmetrically (contiguous out)."""
+    if ph == 0 and pw == 0:
+        return x.contiguous()
+    return F.pad(x, (0, 0, pw, pw, ph, ph)).contiguous()
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _oihw(w: torch.Tensor) -> torch.Tensor:
+    return w.permute(3, 2, 0, 1).contiguous()
+
+
+def _check_window(stat_window, h: int, wd: int) -> Tuple[int, int, int, int]:
+    h0, h1, w0, w1 = (int(v) for v in stat_window)
+    if not (0 <= h0 <= h1 <= h and 0 <= w0 <= w1 <= wd):
+        raise ValueError(f"stat_window {stat_window} outside the {h}x{wd} output")
+    return h0, h1, w0, w1
+
+
+def _window_stats(y: torch.Tensor, win) -> Tuple[torch.Tensor, torch.Tensor]:
+    h0, h1, w0, w1 = win
+    yw = y[:, h0:h1, w0:w1, :].float()
+    return yw.sum(dim=(0, 1, 2)), (yw * yw).sum(dim=(0, 1, 2))
+
+
+def halo_conv2d_plain(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
+                      fuse_relu: bool = False, stat_window=None):
+    """Plain PyTorch version of K1/K2: the conv in fp32, then the cast and
+    the windowed statistics of the cast output."""
+    out_dtype = out_dtype or x.dtype
+    xf = x.float()
+    if fuse_relu:
+        xf = torch.relu(xf)
+    y = F.conv2d(_nchw(xf), _oihw(w.float())).permute(0, 2, 3, 1)
+    y = y.to(out_dtype).contiguous()
+    if stat_window is None:
+        return y
+    win = _check_window(stat_window, y.shape[1], y.shape[2])
+    return (y, *_window_stats(y, win))
+
+
+def _library():
+    from mpi4dl_tpu_torch.ops import _build
+
+    lib = _build.load("halo_conv")
+    if lib.halo_conv2d_launch.argtypes is None:
+        lib.halo_conv2d_launch.argtypes = [_VP] * 5 + [_I] * 14 + [_VP]
+        lib.halo_conv2d_launch.restype = _I
+        lib.halo_conv2d_tile_m.restype = _I
+        lib.halo_conv2d_error_string.argtypes = [_I]
+        lib.halo_conv2d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(x, w, out_dtype, fuse_relu, stat_window):
+    if w.device != x.device:
+        raise ValueError(f"x on {x.device} but w on {w.device}")
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"halo_conv2d takes fp32 or bf16 x and w of one type, "
+                        f"got {x.dtype} and {w.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"halo_conv2d writes fp32 or bf16, not {out_dtype}")
+    if x.dim() != 4 or w.dim() != 4 or w.shape[2] != x.shape[3]:
+        raise ValueError(f"shapes x {tuple(x.shape)} w {tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("halo_conv2d takes contiguous NHWC x and HWIO w")
+    n, hp, wp, cin = x.shape
+    kh, kw, _, cout = w.shape
+    h, wd = hp - kh + 1, wp - kw + 1
+    if h <= 0 or wd <= 0:
+        raise ValueError(f"input {tuple(x.shape)} smaller than kernel {kh}x{kw}")
+    lib = _library()
+    y = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
+    win = (0, 0, 0, 0)
+    ps = pss = None
+    if stat_window is not None:
+        win = _check_window(stat_window, h, wd)
+        tiles = -(-(n * h * wd) // lib.halo_conv2d_tile_m())
+        ps = torch.empty((tiles, cout), dtype=torch.float32, device=x.device)
+        pss = torch.empty_like(ps)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.halo_conv2d_launch(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(),
+            ps.data_ptr() if ps is not None else None,
+            pss.data_ptr() if pss is not None else None,
+            n, hp, wp, cin, kh, kw, cout,
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(fuse_relu),
+            *win, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "halo_conv2d kernel launch failed: "
+            + lib.halo_conv2d_error_string(err).decode()
+        )
+    if ps is None:
+        LAUNCHES["halo_conv2d"] += 1
+        return y
+    LAUNCHES["halo_conv2d_stats"] += 1
+    return y, ps.sum(dim=0), pss.sum(dim=0)
+
+
+def halo_conv2d(x: torch.Tensor, w: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None,
+                fuse_relu: bool = False, stat_window=None):
+    """K1 (``stat_window=None``) or K2.  Returns ``y``, or ``(y, sum,
+    sumsq)`` with fp32 ``[Cout]`` statistics of the cast ``y`` over the
+    window.  CPU tensors take :func:`halo_conv2d_plain`; CUDA tensors launch
+    the kernel (or raise)."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return halo_conv2d_plain(x, w, out_dtype, fuse_relu, stat_window)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"halo_conv2d: no kernel for device {x.device}")
+    return _launch(x, w, out_dtype, fuse_relu, stat_window)
+
+
+# ---------------------------------------------------------------------------
+# Trainable forms.
+#
+#   dx[n,a,b,ci] = Σ ct[n,a-dy,b-dx,co] · w[dy,dx,ci,co]
+#                = VALID conv of ct zero-padded by (kh-1, kw-1) with the
+#                  spatially flipped, io-swapped kernel — K1 again.
+# ---------------------------------------------------------------------------
+
+
+def _flip_swap(w: torch.Tensor) -> torch.Tensor:
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def _dx(ct: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
+    kh, kw = w.shape[0], w.shape[1]
+    return halo_conv2d(pad_hw(ct, kh - 1, kw - 1),
+                       _flip_swap(w).to(ct.dtype), out_dtype=out_dtype)
+
+
+def _dw(x: torch.Tensor, ct: torch.Tensor, w_shape) -> torch.Tensor:
+    kh, kw, cin, cout = w_shape
+    dw = torch.nn.grad.conv2d_weight(
+        _nchw(x), (cout, cin, kh, kw), _nchw(ct.to(x.dtype))
+    )
+    return dw.permute(2, 3, 1, 0)
+
+
+class _HaloConv2dFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return halo_conv2d(x, w)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        return _dx(ct, w, x.dtype), _dw(x, ct, w.shape)
+
+
+def halo_conv2d_t(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Trainable K1 (counterpart of ``pallas_conv.halo_conv2d_t``)."""
+    return _HaloConv2dFn.apply(x, w)
+
+
+class _FusedReluConvBnFn(torch.autograd.Function):
+    """(y, s, ss) = (conv(relu(x), w), Σ_win cast(y), Σ_win cast(y)²).
+
+    Backward, without recomputing the forward:
+      dy = ct_y + 1_win·(ct_s + 2·y·ct_ss)    (fp32, then ct_y's dtype)
+      dx = relu'(x) ⊙ K1(pad(dy), flip+swap(w))
+      dw = conv2d_weight(relu(x), dy)
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, stat_window):
+        y, s, ss = halo_conv2d(x, w, fuse_relu=True, stat_window=stat_window)
+        ctx.save_for_backward(x, w, y)
+        ctx.win = tuple(stat_window)
+        return y, s, ss
+
+    @staticmethod
+    def backward(ctx, ct_y, ct_s, ct_ss):
+        x, w, y = ctx.saved_tensors
+        h0, h1, w0, w1 = ctx.win
+        dy = ct_y.to(torch.float32, copy=True)
+        dy[:, h0:h1, w0:w1, :] += ct_s + 2.0 * y[:, h0:h1, w0:w1, :].float() * ct_ss
+        dy = dy.to(ct_y.dtype)
+        dx = torch.where(x > 0, _dx(dy, w, x.dtype), 0.0)
+        return dx, _dw(torch.relu(x), dy, w.shape), None
+
+
+def fused_relu_conv_bn_t(x: torch.Tensor, w: torch.Tensor, stat_window):
+    """Trainable K2 (counterpart of ``pallas_conv.fused_relu_conv_bn_t``):
+    returns ``(y, sum, sumsq)`` with y = conv(relu(x), w), VALID and
+    margin-consuming, and fp32 statistics of the cast y over
+    ``stat_window`` = (h0, h1, w0, w1) in output coordinates."""
+    return _FusedReluConvBnFn.apply(x, w, tuple(stat_window))

@@ -1,0 +1,76 @@
+"""Carry weights between the JAX package's parameter pytree and the port.
+
+The JAX package keeps a model's parameters as nested lists and dicts: one
+entry per cell, a list per :class:`LayerCell`, a dict per composite cell
+keyed by its submodule names, and a dict of arrays per layer (HWIO conv
+``kernel``, ``bias``, BN ``scale``/``bias``/``mean``/``var``, Dense
+``kernel``/``bias``).  The port's modules mirror that tree: the same names,
+the same layouts.  :func:`from_jax_params` copies such a tree (of numpy
+arrays) into a port model; :func:`to_jax_layout` reads one back out.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from mpi4dl_tpu_torch.cells import CellModel, LayerCell
+from mpi4dl_tpu_torch.layers import Layer
+
+
+def _sequence(module: nn.Module):
+    if isinstance(module, CellModel):
+        return module.cells
+    if isinstance(module, LayerCell):
+        return module.layers
+    if isinstance(module, nn.ModuleList):
+        return module
+    raise TypeError(f"{type(module).__name__} has no list layout")
+
+
+def _tensors(layer: Layer):
+    return {**dict(layer.named_parameters(recurse=False)),
+            **dict(layer.named_buffers(recurse=False))}
+
+
+@torch.no_grad()
+def from_jax_params(params, model: nn.Module) -> None:
+    """Copy the JAX pytree ``params`` (nested lists/dicts of numpy arrays)
+    into ``model``'s parameters and buffers, casting to their dtype."""
+    if isinstance(params, (list, tuple)):
+        children = list(_sequence(model))
+        if len(children) != len(params):
+            raise ValueError(
+                f"{type(model).__name__}: {len(children)} children, "
+                f"{len(params)} pytree entries"
+            )
+        for child, p in zip(children, params):
+            from_jax_params(p, child)
+        return
+    tensors = _tensors(model) if isinstance(model, Layer) else {}
+    for key, value in params.items():
+        if key in tensors:
+            t = tensors[key]
+            src = torch.from_numpy(np.array(value, dtype=np.float32))
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: pytree {tuple(src.shape)} vs "
+                                 f"model {tuple(t.shape)}")
+            t.copy_(src)
+        else:
+            from_jax_params(value, getattr(model, key))
+
+
+def to_jax_layout(model: nn.Module):
+    """The model's parameters and buffers as the JAX pytree (numpy fp32)."""
+    if isinstance(model, (CellModel, LayerCell, nn.ModuleList)):
+        return [to_jax_layout(c) for c in _sequence(model)]
+    if isinstance(model, Layer):
+        return {k: t.detach().float().cpu().numpy()
+                for k, t in _tensors(model).items()}
+    out = {}
+    for name, child in model.named_children():
+        sub = to_jax_layout(child)
+        if sub != {}:
+            out[name] = sub
+    return out
