@@ -1,12 +1,14 @@
 """Drive the PyTorch port (mpi4dl_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --profile out.txt  # also profile one step, table to out.txt
+    python3 chip_smoke.py --profile out.txt  # also profile one step of each
+                                             # slice, tables to out.txt
 
 Phases; any failure ends the run with a non-zero exit and nothing is caught:
 
 1. Build: compile the port's CUDA kernels from ``mpi4dl_tpu_torch/csrc``
-   with nvcc; print the build seconds and the card's name and power limit.
+   with nvcc (one process per source, all at once); print the build
+   seconds and the card's name and power limit.
 2. Kernels: hold K1 (halo conv), K2 (fused relu→conv→BN-stats) and K1 as
    the dx of K2's backward against their plain PyTorch versions on the card,
    at the eight shapes of the main path (bf16) and at one fp32 ragged-tail
@@ -24,7 +26,27 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    plain (unfused, library-conv) path; the losses agree within rtol 1e-2
    (bf16 keeps 8 bits, and the two paths round conv outputs after
    different fp32 summation orders, so one-ULP flips compound over cells).
-4. The kernels' JSON line, the card line, and last the result line.
+4. K3 kernel: hold the block-flash kernel against its plain version at the
+   kernel registry's two cases, at ``flash_attention_local``'s shapes of
+   the long-context slice (B1 H8 D128, T 4096 and 16384, causal, bf16
+   k/v) and at three ring hops of 4096 (diagonal, past, wholly future).
+   fp32 arithmetic on both sides (TF32 off): m (unmasked rows) and o_hat/l
+   within 1e-5·max(1, max|ref|), l within rtol 1e-5, masked rows exactly
+   (0, -1e30, 0).  Time kernel, plain version and, at the local shapes,
+   ``F.scaled_dot_product_attention`` in fp32 with CUDA events.
+5. Ring: the one-process emulation of a 4-rank ring (per-hop offsets, K3,
+   ``mlo_merge``) at B1 H8 D128 T 16384, causal and not, against plain
+   single-device attention (rtol/atol 2e-5, tests/flash_ring_check.py);
+   then the port's ``benchmark_ring_attention`` tool at T 16384, whose
+   JSON line must read ``"validation": "pass"``.
+6. Long-context slice: four ``SeqBlock(1024, 8 heads, mlp 4, causal)``,
+   B1 T 16384, bf16 activations and targets, fp32 params, SGD lr 1e-3,
+   through ``make_seq_cp_train_step(group=None)``: 1 warm-up and 3 timed
+   steps with finite losses and exactly 4 K3 launches per step;
+   tokens/s and peak memory.  Then one block at T 2048 in fp32: one step
+   through K3 and one through the einsum path; the losses agree within
+   rtol 1e-4.
+7. The kernels' JSON line, the card line, and last the result line.
 """
 
 from __future__ import annotations
@@ -38,6 +60,7 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 outside the tensor cores (same)
 HBM_BYTES_PER_S = 3.35e12
 
 # The main path's K2 / K1-dx calls per training step: (H = W, m = Cin =
@@ -50,7 +73,27 @@ MAIN_PATH = [
 ]
 K1_SRC = "mpi4dl_tpu/ops/pallas_conv.py:41"
 K2_SRC = "mpi4dl_tpu/ops/pallas_conv.py:106"
+K3_SRC = "mpi4dl_tpu/ops/pallas_attention.py:76"
 SOURCE = "mpi4dl_tpu_torch/csrc/halo_conv.cu"
+K3_SOURCE = "mpi4dl_tpu_torch/csrc/block_flash.cu"
+
+# The long-context slice: SeqBlock(1024, 8 heads) x 4, B1, T 16384 — the JAX
+# ring tool's width (benchmarks/communication/ring/benchmark_ring_attention.py
+# :38-40).  Each block's forward makes one K3 call at (BH 8, T, T, D 128).
+SEQ_T, SEQ_D, SEQ_HEADS, SEQ_BLOCKS = 16384, 1024, 8, 4
+# K3 checks: (label, BH, Tq, Tk, D, q/k/v dtype, causal, q_off, k_off,
+# library yardstick?).  The first two are the kernel registry's cases
+# (mpi4dl_tpu/ops/kernel_registry.py:76-106, scale 0.125).
+K3_SHAPES = [
+    ("registry fp32", 2, 48, 300, 64, "float32", False, 0, 0, False),
+    ("registry bf16 causal", 2, 48, 300, 64, "bfloat16", True, 0, 0, False),
+    ("local T=4096", 8, 4096, 4096, 128, "bfloat16", True, 0, 0, True),
+    ("local T=16384", 8, SEQ_T, SEQ_T, 128, "bfloat16", True, 0, 0, True),
+    ("hop diagonal", 8, 4096, 4096, 128, "float32", True, 4096, 4096, False),
+    ("hop past", 8, 4096, 4096, 128, "float32", True, 8192, 0, False),
+    ("hop future", 8, 4096, 4096, 128, "float32", True, 0, 4096, False),
+]
+K3_MAIN = "local T=16384"   # the slice's K3 call, SEQ_BLOCKS times a step
 
 
 def card_line() -> str:
@@ -98,6 +141,14 @@ def check_stats_bf16(name, s, ss, s_ref, ss_ref, y_ref) -> None:
     bss = 2.0 ** -6 * float((yw * yw).sum(dim=(0, 1, 2)).max())
     assert es <= bs, f"{name} sum: {es} > {bs}"
     assert ess <= bss, f"{name} sumsq: {ess} > {bss}"
+
+
+def reset_all_counts() -> None:
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+
+    hc.reset_launch_counts()
+    fa.reset_launch_counts()
 
 
 def call_cost(x, w, y_shape, stats: bool):
@@ -206,7 +257,7 @@ def phase_slice():
     y = torch.randint(0, 1000, (1,), generator=gen, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hc.reset_launch_counts()
+    reset_all_counts()
     times = []
     for i in range(4):
         before = dict(hc.LAUNCHES)
@@ -250,14 +301,232 @@ def phase_slice():
     return launches
 
 
-def profile_step(path: str) -> None:
-    """One profiled full-width step: device time by kernel name."""
+def flash_pairs(t_q: int, t_k: int, q_off: int, k_off: int, causal: bool) -> int:
+    """The (query, key) pairs a block's mask leaves visible: the work this
+    call's data needs."""
+    if not causal:
+        return t_q * t_k
+    return sum(min(t_k, max(0, q_off + i - k_off + 1)) for i in range(t_q))
+
+
+def flash_cost(bh, t_q, t_k, d, kv_bytes, q_off, k_off, causal):
+    """(bytes, flops) of one K3 call: q (fp32, scaled) and k, v read once,
+    o_hat, m, l written once; 2 matmuls x 2 flops per visible pair and D."""
+    nbytes = bh * t_q * d * 4 + 2 * bh * t_k * d * kv_bytes + bh * t_q * (d + 2) * 4
+    return nbytes, 4 * bh * d * flash_pairs(t_q, t_k, q_off, k_off, causal)
+
+
+def check_flash(name, got, ref, bound: float = 1e-5) -> float:
+    """m (unmasked rows) and o_hat/l within bound·max(1, max|ref|), l within
+    rtol bound, masked rows exactly (0, -1e30, 0); returns max|Δ(o_hat/l)|."""
+    import torch
+
+    from mpi4dl_tpu_torch.ops.flash_attention import NEG_INF
+
+    (o, m, l), (ro, rm, rl) = got, ref
+    live = rm > NEG_INF * 0.5
+    assert torch.equal(live, m > NEG_INF * 0.5), f"{name}: masked rows differ"
+    dead = ~live
+    assert bool(torch.all(m[dead] == NEG_INF) and torch.all(l[dead] == 0)
+                and torch.all(o[dead] == 0)), f"{name}: masked rows not (0, -1e30, 0)"
+    if not bool(live.any()):
+        return 0.0
+    dm = float((m[live] - rm[live]).abs().max())
+    assert dm <= bound * max(1.0, float(rm[live].abs().max())), f"{name}: |dm| {dm}"
+    dl = float(((l - rl).abs() / rl)[live].max())
+    assert dl <= bound, f"{name}: l rel {dl}"
+    on = o / l.clamp_min(1e-30)[..., None]
+    ron = ro / rl.clamp_min(1e-30)[..., None]
+    do = float((on - ron).abs().max())
+    assert do <= bound * max(1.0, float(ron.abs().max())), f"{name}: |d(o/l)| {do}"
+    return do
+
+
+def phase_flash_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    main = {}
+    err = 0.0
+    for label, bh, tq, tk, d, dt, causal, q_off, k_off, lib in K3_SHAPES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((bh, tq, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((bh, tk, d), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        scale = 0.125 if label.startswith("registry") else d ** -0.5
+        args = (q_off, k_off, causal, scale)
+        got = fa.block_flash(q, k, v, *args)
+        e = check_flash(f"K3 {label}", got, fa.block_flash_plain(q, k, v, *args))
+        err = max(err, e)
+        del got
+        torch.cuda.synchronize()
+        iters = 3 if tq > 4096 else 10
+        ms = time_ms(lambda: fa.block_flash(q, k, v, *args), iters)
+        pms = time_ms(lambda: fa.block_flash_plain(q, k, v, *args), iters)
+        lms = None
+        if lib:
+            q4, k4, v4 = (x.float().reshape(1, bh, -1, d) for x in (q, k, v))
+            lms = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), iters)
+            del q4, k4, v4
+        nb, fl = flash_cost(bh, tq, tk, d, k.element_size(), q_off, k_off, causal)
+        t_b, t_o = nb / HBM_BYTES_PER_S, fl / PEAK_FP32_FLOPS
+        bound_ms = 1e3 * max(t_b, t_o)
+        lib_txt = f"  SDPA fp32 {lms:.4f} ms" if lms is not None else ""
+        tflops = f"{fl / ms / 1e9:.2f} TFLOP/s" if fl else "no visible pair"
+        print(f"kernels: K3 {label} q{(bh, tq, d)} k{(bh, tk, d)} {dt} causal={causal} "
+              f"offs=({q_off},{k_off}): kernel {ms:.4f} ms  plain {pms:.4f} ms{lib_txt}"
+              f"  bound {bound_ms:.4f} ms ({'bytes' if t_b > t_o else 'operations'}, "
+              f"fp32 67 TFLOP/s)  {tflops}  max|d(o/l)| {e:.3g}", flush=True)
+        if label == K3_MAIN:
+            main = dict(ms=SEQ_BLOCKS * ms, plain_ms=SEQ_BLOCKS * pms,
+                        library_ms=SEQ_BLOCKS * lms, bytes=SEQ_BLOCKS * nb,
+                        flops=SEQ_BLOCKS * fl)
+        del q, k, v
+        torch.cuda.empty_cache()
+    main["err"] = err
+    return main
+
+
+def phase_ring():
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.communication.ring import (
+        benchmark_ring_attention as tool,
+    )
+    from mpi4dl_tpu_torch.ops.ring import emulated_ring, ring_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    q, k, v = (torch.randn((1, SEQ_T, SEQ_HEADS, 128), generator=gen, device=dev)
+               for _ in range(3))
+    with torch.no_grad():
+        for causal in (False, True):
+            got = emulated_ring(q, k, v, 4, causal)
+            want = ring_attention(q, k, v, None, 1, causal=causal, use_flash=False)
+            err = float((got - want).abs().max())
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+            print(f"ring: emulated 4-rank ring through K3, B1 H8 D128 T {SEQ_T} "
+                  f"causal={causal}: max|err| {err:.3g} vs plain attention", flush=True)
+            del got, want
+    del q, k, v
+    torch.cuda.empty_cache()
+    out = tool.measure(tool.get_parser().parse_args(
+        ["--seq-len", str(SEQ_T), "--iterations", "3"]))
+    print(json.dumps(out), flush=True)
+    assert out["validation"] == "pass", out
+
+
+def seq_blocks(n: int, dev):
+    import torch
+
+    from mpi4dl_tpu_torch.models.seqblock import SeqBlock
+
+    return torch.nn.ModuleList(SeqBlock(SEQ_D, SEQ_HEADS, mlp_ratio=4, causal=True,
+                                        device=dev, seed=i) for i in range(n))
+
+
+def phase_seq_slice():
+    import torch
+
+    from mpi4dl_tpu_torch.models.seqblock import make_seq_cp_train_step
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    blocks = seq_blocks(SEQ_BLOCKS, dev)
+    step = make_seq_cp_train_step(blocks, None, 1, 1e-3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x, y = (torch.randn((1, SEQ_T, SEQ_D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    times = []
+    for i in range(4):
+        before = fa.LAUNCHES["block_flash"]
+        t0 = time.perf_counter()
+        loss = float(step(x, y))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        d3 = fa.LAUNCHES["block_flash"] - before
+        print(f"seq slice: step {i} loss {loss:.6f} {times[-1] * 1e3:.1f} ms "
+              f"K3 {d3} launches", flush=True)
+        assert math.isfinite(loss), f"step {i}: loss {loss}"
+        assert d3 == SEQ_BLOCKS, f"step {i}: {d3} K3 launches (want {SEQ_BLOCKS})"
+    launches = fa.LAUNCHES["block_flash"]
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times[1:]) / 3
+    print(f"seq slice: SeqBlock(1024, 8) x{SEQ_BLOCKS} T {SEQ_T} bs1 bf16: "
+          f"{SEQ_T / step_s:.1f} tokens/s ({1e3 * step_s:.1f} ms/step), "
+          f"peak {peak / 2**30:.2f} GiB", flush=True)
+    del blocks, step, x, y
+    torch.cuda.empty_cache()
+
+    # Reduced depth: one block at T 2048 in fp32, K3 against the einsum path.
+    xs, ys = (torch.randn((1, 2048, SEQ_D), generator=gen, device=dev) for _ in range(2))
+    losses = []
+    for flash in (True, False):
+        st = make_seq_cp_train_step(seq_blocks(1, dev), None, 1, 1e-3, use_flash=flash)
+        before = fa.LAUNCHES["block_flash"]
+        losses.append(float(st(xs, ys)))
+        assert fa.LAUNCHES["block_flash"] - before == int(flash), "K3 launches"
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"seq slice: SeqBlock(1024, 8) x1 T 2048 fp32 loss K3 {losses[0]:.8f} "
+          f"einsum {losses[1]:.8f} rel {rel:.2e}", flush=True)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert rel <= 1e-4, f"K3 vs einsum loss rel {rel}"
+    return launches
+
+
+def _profile(path: str, title: str, step, kernel_key: str) -> None:
+    """Profile one call of ``step`` (after two warm-ups): device time by
+    kernel name, appended to ``path``, and the share in ``kernel_key``."""
+    import torch
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
+    # Kernel time only, as the table's own total counts it: CUDA events
+    # that are not annotation ranges.
+    kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    key_us = sum(e.self_device_time_total for e in kernels if kernel_key in e.key)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "a") as f:
+        f.write(f"== {title}\n{table}\n")
+    print(table, flush=True)
+    print(f"profile: {title}: step {wall_us / 1e3:.1f} ms wall, device busy "
+          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), {kernel_key} "
+          f"{key_us / 1e3:.1f} ms ({100 * key_us / max(busy_us, 1e-9):.1f}% of busy)",
+          flush=True)
+
+
+def profile_steps(path: str) -> None:
+    """One profiled full-width step of each slice."""
     import torch
 
     from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.models.seqblock import make_seq_cp_train_step
     from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_train_step
 
     dev = torch.device("cuda")
+    open(path, "w").close()
     shape = (1, 1024, 1024, 3)
     model = amoebanetd(shape, num_classes=1000, num_layers=18, num_filters=416,
                        device=dev, seed=0)
@@ -266,34 +535,35 @@ def profile_step(path: str) -> None:
     state = TrainState.create(model, opt)
     x = torch.randn(shape, device=dev)
     y = torch.zeros((1,), dtype=torch.long, device=dev)
-    for _ in range(2):
-        step(state, x, y)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        step(state, x, y)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    avgs = prof.key_averages()
-    table = avgs.table(sort_by="self_cuda_time_total", row_limit=40)
-    # Kernel time only, as the table's own total counts it: CUDA events
-    # that are not the cellNN annotation ranges.
-    busy_us = sum(e.self_device_time_total for e in avgs
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.is_user_annotation)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(table)
-    print(table, flush=True)
-    print(f"profile: step {wall_us / 1e3:.1f} ms wall, device busy "
-          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%)", flush=True)
+    _profile(path, "AmoebaNet-D(18,416) 1024^2 bs1 bf16", lambda: step(state, x, y),
+             "halo_conv")
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+    seq_step = make_seq_cp_train_step(seq_blocks(SEQ_BLOCKS, dev), None, 1, 1e-3)
+    xs, ys = (torch.randn((1, SEQ_T, SEQ_D), device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    _profile(path, f"SeqBlock(1024,8)x{SEQ_BLOCKS} T {SEQ_T} bs1 bf16",
+             lambda: seq_step(xs, ys), "block_flash")
+
+
+def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
+    t_bytes = t["bytes"] / HBM_BYTES_PER_S
+    t_ops = t["flops"] / peak_flops
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": t["err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": library_ms,
+    }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH",
-                    help="profile one full-width step; write its table to PATH")
+                    help="profile one full-width step of each slice; write the "
+                         "tables to PATH")
     args = ap.parse_args()
     import torch
 
@@ -308,24 +578,19 @@ def main() -> int:
     print(f"build: {secs:.1f} s on {card}", flush=True)
     tot = phase_kernels()
     launches = phase_slice()
+    k3 = phase_flash_kernels()
+    phase_ring()
+    k3_launches = phase_seq_slice()
     if args.profile:
-        profile_step(args.profile)
-    entries = []
-    for key, name, src, count in (
-        ("K1", "halo_conv2d", K1_SRC, "halo_conv2d"),
-        ("K2", "halo_conv2d_stats", K2_SRC, "halo_conv2d_stats"),
-    ):
-        t = tot[key]
-        t_bytes = t["bytes"] / HBM_BYTES_PER_S
-        t_ops = t["flops"] / PEAK_BF16_FLOPS
-        entries.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": src,
-            "launches": launches[count], "max_abs_err": t["err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": t["library_ms"] if key == "K1" else None,
-        })
+        profile_steps(args.profile)
+    entries = [
+        kernel_entry("halo_conv2d", SOURCE, K1_SRC, launches["halo_conv2d"], tot["K1"],
+                     tot["K1"]["library_ms"], PEAK_BF16_FLOPS),
+        kernel_entry("halo_conv2d_stats", SOURCE, K2_SRC, launches["halo_conv2d_stats"],
+                     tot["K2"], None, PEAK_BF16_FLOPS),
+        kernel_entry("block_flash", K3_SOURCE, K3_SRC, k3_launches, k3,
+                     k3["library_ms"], PEAK_FP32_FLOPS),
+    ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

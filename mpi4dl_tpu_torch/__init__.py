@@ -1,20 +1,27 @@
 """mpi4dl_tpu_torch — the PyTorch / CUDA (H100) port of ``mpi4dl_tpu``.
 
-This slice: single-device AmoebaNet-D training, with the JAX package's two
-main-path Pallas kernels (the margin-consuming conv K1 and the fused
+Slices so far: single-device AmoebaNet-D training, with the JAX package's
+two main-path Pallas kernels (the margin-consuming conv K1 and the fused
 relu→conv→BN-stats K2) as hand-written CUDA kernels for ``sm_90a``
-(``ops/halo_conv.py``, ``csrc/halo_conv.cu``).  The package imports
-neither JAX nor ``mpi4dl_tpu``.  Entry points run on the card unless the
+(``ops/halo_conv.py``, ``csrc/halo_conv.cu``); and the long-context family
+— the ``SeqBlock`` transformer block, exact ring attention over a
+sequence-sharded process group and the context-parallel SGD step — with
+the block-flash kernel K3 (``ops/flash_attention.py``,
+``csrc/block_flash.cu``).  The package imports neither JAX nor
+``mpi4dl_tpu``.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
-from mpi4dl_tpu_torch.models import amoebanetd, build_model
+from mpi4dl_tpu_torch.models import (
+    SeqBlock, amoebanetd, build_model, make_seq_cp_train_step,
+)
 from mpi4dl_tpu_torch.train import (
     Optimizer, TrainState, make_eval_step, make_train_step,
 )
 
 __all__ = [
-    "ApplyCtx", "SpatialCtx", "amoebanetd", "build_model", "Optimizer",
-    "TrainState", "make_eval_step", "make_train_step",
+    "ApplyCtx", "SpatialCtx", "SeqBlock", "amoebanetd", "build_model",
+    "Optimizer", "TrainState", "make_eval_step", "make_seq_cp_train_step",
+    "make_train_step",
 ]

@@ -1,6 +1,7 @@
 from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+from mpi4dl_tpu_torch.models.seqblock import SeqBlock, make_seq_cp_train_step
 
-__all__ = ["amoebanetd", "build_model"]
+__all__ = ["SeqBlock", "amoebanetd", "build_model", "make_seq_cp_train_step"]
 
 
 def build_model(cfg, device="cuda", seed=None):

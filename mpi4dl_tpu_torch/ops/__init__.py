@@ -1,2 +1,3 @@
-"""Operators of the PyTorch port: the halo-conv kernels and the
-single-device subset of the D2 premargin machinery."""
+"""Operators of the PyTorch port: the halo-conv kernels (K1, K2), the
+single-device subset of the D2 premargin machinery, the block-flash
+attention kernel (K3) and ring attention."""

@@ -4,9 +4,12 @@ The JAX package keeps a model's parameters as nested lists and dicts: one
 entry per cell, a list per :class:`LayerCell`, a dict per composite cell
 keyed by its submodule names, and a dict of arrays per layer (HWIO conv
 ``kernel``, ``bias``, BN ``scale``/``bias``/``mean``/``var``, Dense
-``kernel``/``bias``).  The port's modules mirror that tree: the same names,
-the same layouts.  :func:`from_jax_params` copies such a tree (of numpy
-arrays) into a port model; :func:`to_jax_layout` reads one back out.
+``kernel``/``bias``).  The long-context family keeps a list with one dict
+per ``SeqBlock`` (``ln1_scale``, ``wqkv``, ...), which maps to an
+``nn.ModuleList`` of the port's ``SeqBlock``.  The port's modules mirror
+that tree: the same names, the same layouts.  :func:`from_jax_params`
+copies such a tree (of numpy arrays) into a port model;
+:func:`to_jax_layout` reads one back out.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ from torch import nn
 
 from mpi4dl_tpu_torch.cells import CellModel, LayerCell
 from mpi4dl_tpu_torch.layers import Layer
+from mpi4dl_tpu_torch.models.seqblock import SeqBlock
+
+# Modules whose own parameters and buffers are one dict of the pytree.
+_LEAVES = (Layer, SeqBlock)
 
 
 def _sequence(module: nn.Module):
@@ -48,7 +55,7 @@ def from_jax_params(params, model: nn.Module) -> None:
         for child, p in zip(children, params):
             from_jax_params(p, child)
         return
-    tensors = _tensors(model) if isinstance(model, Layer) else {}
+    tensors = _tensors(model) if isinstance(model, _LEAVES) else {}
     for key, value in params.items():
         if key in tensors:
             t = tensors[key]
@@ -65,7 +72,7 @@ def to_jax_layout(model: nn.Module):
     """The model's parameters and buffers as the JAX pytree (numpy fp32)."""
     if isinstance(model, (CellModel, LayerCell, nn.ModuleList)):
         return [to_jax_layout(c) for c in _sequence(model)]
-    if isinstance(model, Layer):
+    if isinstance(model, _LEAVES):
         return {k: t.detach().float().cpu().numpy()
                 for k, t in _tensors(model).items()}
     out = {}

@@ -91,3 +91,86 @@ def test_reduced_depth_step_launches_the_kernels(card):
                 torch.zeros((1,), dtype=torch.long, device=card))
     assert math.isfinite(float(m["loss"]))
     assert hc.LAUNCHES["halo_conv2d_stats"] == hc.LAUNCHES["halo_conv2d"] == 20
+
+
+# ---------------------------------------------------------------------------
+# K3, the block-flash attention kernel.
+# ---------------------------------------------------------------------------
+
+
+def _flash_check(got, ref, bound=1e-5):
+    """m on its unmasked rows and o_hat / l within bound·max(1, max|ref|);
+    l within rtol bound; masked rows exactly (0, NEG_INF, 0)."""
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    (o, m, l), (ro, rm, rl) = got, ref
+    live = rm > fa.NEG_INF * 0.5
+    assert torch.equal(live, m > fa.NEG_INF * 0.5)
+    assert torch.all(m[~live] == fa.NEG_INF) and torch.all(l[~live] == 0)
+    assert torch.all(o[~live] == 0)
+    if live.any():
+        dm = float((m[live] - rm[live]).abs().max())
+        assert dm <= bound * max(1.0, float(rm[live].abs().max())), dm
+        assert float(((l - rl).abs() / rl.clamp_min(1e-30))[live].max()) <= bound
+    on, ron = o / l.clamp_min(1e-30)[..., None], ro / rl.clamp_min(1e-30)[..., None]
+    assert float((on - ron).abs().max()) <= bound * max(1.0, float(ron.abs().max()))
+
+
+@pytest.mark.parametrize("kv_dtype,causal,q_off,k_off", [
+    (torch.float32, False, 0, 0),
+    (torch.bfloat16, True, 130, 40),     # a ring hop: partly masked rows
+    (torch.float32, True, 0, 500),       # every row masked
+])
+def test_block_flash_kernel_matches_plain(card, kv_dtype, causal, q_off, k_off):
+    """Tail shape: Tq, Tk off the 64-row tiles and D = 40."""
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((3, 77, 40), generator=g, device=card)
+    k, v = (torch.randn((3, 201, 40), generator=g, device=card).to(kv_dtype)
+            for _ in range(2))
+    args = (q_off, k_off, causal, 40 ** -0.5)
+    before = fa.LAUNCHES["block_flash"]
+    got = fa.block_flash(q, k, v, *args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["block_flash"] == before + 1
+    _flash_check(got, fa.block_flash_plain(q, k, v, *args))
+
+
+def test_block_flash_refuses_wide_heads(card):
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros((1, 8, 136), device=card)
+    with pytest.raises(ValueError, match="D <= 128"):
+        fa.block_flash(q, q, q)
+
+
+def test_block_flash_autograd_on_card_matches_cpu(card):
+    """flash_attention_local's gradients on the card (K3 forward) against
+    the same backward on the CPU (plain forward)."""
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(1)
+    qkv = [torch.randn((1, 300, 2, 64), generator=g) for _ in range(3)]
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        ts = [x.to(dev).requires_grad_() for x in qkv]
+        out = fa.flash_attention_local(*ts, causal=True)
+        (out * out).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_seqblock_step_launches_k3_once_per_block(card):
+    from mpi4dl_tpu_torch.models.seqblock import SeqBlock, make_seq_cp_train_step
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    blocks = torch.nn.ModuleList(SeqBlock(128, 2, device=card, seed=i) for i in range(3))
+    step = make_seq_cp_train_step(blocks, None, 1, 1e-3)
+    x = torch.randn((1, 512, 128), device=card).to(torch.bfloat16)
+    y = torch.randn((1, 512, 128), device=card).to(torch.bfloat16)
+    fa.reset_launch_counts()
+    loss = float(step(x, y))
+    assert math.isfinite(loss)
+    assert fa.LAUNCHES["block_flash"] == 3

@@ -3,6 +3,7 @@ inside it, no silent drop to the CPU, and unported engines refused by
 name."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -43,7 +44,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, mpi4dl_tpu_torch, mpi4dl_tpu_torch.__main__, "
-            "mpi4dl_tpu_torch.params; "
+            "mpi4dl_tpu_torch.params, mpi4dl_tpu_torch.distributed, "
+            "mpi4dl_tpu_torch.ops.flash_attention, mpi4dl_tpu_torch.ops.ring, "
+            "mpi4dl_tpu_torch.models.seqblock, "
+            "mpi4dl_tpu_torch.benchmarks.communication.ring.benchmark_ring_attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mpi4dl_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -66,6 +70,30 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--num-layers", "3", "--num-filters", "16", "--steps", "1"])
     assert build_model(cfg, device="cpu").cells[0].conv.kernel.device.type == "cpu"
+
+
+def test_long_context_entry_points_raise_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from mpi4dl_tpu_torch.benchmarks.communication.ring import (
+        benchmark_ring_attention as tool,
+    )
+    from mpi4dl_tpu_torch.models.seqblock import SeqBlock, make_seq_cp_train_step
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SeqBlock(16, 2)
+    blocks = torch.nn.ModuleList([SeqBlock(16, 2, device="cpu")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_seq_cp_train_step(blocks, None, 1, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tool.main(["--seq-len", "32", "--heads", "2", "--dim", "8"])
+    step = make_seq_cp_train_step(blocks, None, 1, 0.1, device="cpu")
+    assert step(torch.zeros((1, 8, 16)), torch.ones((1, 8, 16))).item() > 0
+    assert tool.main(["--seq-len", "32", "--heads", "2", "--dim", "8", "--iterations",
+                      "1", "--warmup", "0", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert out["validation"] == "pass" and out["platform"] == "cpu"
+    assert set(out["variants"]) == {"flash", "einsum"}
 
 
 def test_main_runs_on_cpu_when_asked(capsys):
