@@ -8,12 +8,19 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
 
 1. Build: compile the port's CUDA kernels from ``mpi4dl_tpu_torch/csrc``
    with nvcc (one process per source, all at once); print the build
-   seconds and the card's name and power limit.
+   seconds and the card's name and power limit; check with ``cuobjdump
+   -sass`` that every bf16 halo-conv kernel issues tensor-core MMAs (HMMA)
+   and, where its copies are 8 or 16 bytes, cp.async (LDGSTS).
 2. Kernels: hold K1 (halo conv), K2 (fused relu→conv→BN-stats) and K1 as
    the dx of K2's backward against their plain PyTorch versions on the card,
    at the eight shapes of the main path (bf16) and at one fp32 ragged-tail
-   shape; time kernel, plain version and (K1) ``F.conv2d`` with CUDA events.
-   TF32 is off.  Tolerances: fp32 ≤ 8 scaled ULP (the JAX test's metric,
+   shape; two K2 launches must be bitwise equal.  Time kernel, plain
+   version and (K1) ``F.conv2d`` on the device: 20 calls in a CUDA graph,
+   the median of 5 replays (an eager loop of such calls measures the
+   host's launch rate instead; the wrappers' and ``F.conv2d``'s eager
+   time per call, median of 5 windows of 20, is printed beside it).  Print
+   the kernel/``F.conv2d`` ratio of device times.  TF32 is off.
+   Tolerances: fp32 ≤ 8 scaled ULP (the JAX test's metric,
    tests/test_pallas_conv.py:401-453).  bf16: both sides accumulate in fp32
    and round once, so an output may differ by one bf16 ULP where the two
    fp32 sums straddle a rounding boundary: |Δy| ≤ 2^-7·max|y|, and for the
@@ -33,7 +40,8 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    fp32 arithmetic on both sides (TF32 off): m (unmasked rows) and o_hat/l
    within 1e-5·max(1, max|ref|), l within rtol 1e-5, masked rows exactly
    (0, -1e30, 0).  Time kernel, plain version and, at the local shapes,
-   ``F.scaled_dot_product_attention`` in fp32 with CUDA events.
+   ``F.scaled_dot_product_attention`` in fp32 with CUDA events (median of
+   5 windows of 10 calls; 3 of 3 at T 16384).
 5. Ring: the one-process emulation of a 4-rank ring (per-hop offsets, K3,
    ``mlo_merge``) at B1 H8 D128 T 16384, causal and not, against plain
    single-device attention (rtol/atol 2e-5, tests/flash_ring_check.py);
@@ -55,6 +63,9 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -104,19 +115,94 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 10) -> float:
+def time_ms(fn, iters: int = 20, windows: int = 5) -> float:
+    """Median over ``windows`` windows of the mean time of ``iters`` calls,
+    after two warm-up calls (CUDA events)."""
     import torch
 
     for _ in range(2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def graph_ms(fn, iters: int = 20, windows: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph
+    (after three warm-up calls), the median over ``windows`` replays.  The
+    graph leaves out the host's time to launch each call, which bounds an
+    eager loop of calls that take tens of microseconds on the card."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(windows):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def sass_counts(lib) -> dict:
+    """Tensor-core (HMMA, HGMMA) and cp.async (LDGSTS) instructions in each
+    kernel of a built library, from ``cuobjdump -sass``."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([exe, "-sass", str(lib)], check=True, capture_output=True,
+                         text=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = {"HMMA": 0, "HGMMA": 0, "LDGSTS": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA", "LDGSTS"):
+                if op + "." in line or op + " " in line:
+                    counts[fn][op] += 1
+                    break
+    return counts
+
+
+def check_sass(lib) -> None:
+    """Every bf16 kernel of halo_conv.cu issues HMMA, and every one whose
+    copies are 8 or 16 bytes wide issues cp.async (LDGSTS)."""
+    counts = sass_counts(lib)
+    tc = {}
+    for name, c in counts.items():
+        # template <WARPS_M, WARPS_N, MI, NI, KS, VEC, Tout>
+        m = re.search(r"2tc16halo_conv_kernelI(?:Li\d+E){5}Li(\d+)E", name)
+        if m:
+            tc[name] = c
+            assert c["HMMA"] + c["HGMMA"] > 0, (name, c)
+            assert c["LDGSTS"] > 0 or m.group(1) == "1", (name, c)
+    assert tc, f"no tensor-core kernel in {lib}"
+    hmma = [c["HMMA"] for c in tc.values()]
+    print(f"build: halo_conv.cu SASS: {len(tc)} bf16 kernels, HMMA {sum(hmma)} "
+          f"({min(hmma)}-{max(hmma)} a kernel), HGMMA "
+          f"{sum(c['HGMMA'] for c in tc.values())}, LDGSTS "
+          f"{sum(c['LDGSTS'] for c in tc.values())}; fp32 kernels HMMA "
+          f"{sum(c['HMMA'] for k, c in counts.items() if k not in tc)}", flush=True)
 
 
 def scaled_ulp(got, ref) -> float:
@@ -202,6 +288,9 @@ def phase_kernels():
         yr, sr, ssr = hc.halo_conv2d_plain(xp, wk, fuse_relu=True, stat_window=full)
         e2 = check_bf16(f"K2 {tag} y", y, yr)
         check_stats_bf16(f"K2 {tag}", s, ss, sr, ssr, yr)
+        again = hc.halo_conv2d(xp, wk, fuse_relu=True, stat_window=full)
+        assert all(torch.equal(a, b) for a, b in zip((y, s, ss), again)), \
+            f"K2 {tag}: two launches differ"
         # K1 as the forward conv, and as K2's dx: the padded cotangent with
         # the flipped, io-swapped kernel.
         e1 = check_bf16(f"K1 {tag} fwd", hc.halo_conv2d(xp, wk), hc.halo_conv2d_plain(xp, wk))
@@ -211,12 +300,20 @@ def phase_kernels():
         dx = hc.halo_conv2d(ctp, wt)
         e1 = max(e1, check_bf16(f"K1 {tag} dx", dx, hc.halo_conv2d_plain(ctp, wt)))
         torch.cuda.synchronize()
-        k2 = time_ms(lambda: hc.halo_conv2d(xp, wk, fuse_relu=True, stat_window=full))
-        p2 = time_ms(lambda: hc.halo_conv2d_plain(xp, wk, fuse_relu=True, stat_window=full))
-        k1 = time_ms(lambda: hc.halo_conv2d(ctp, wt))
-        p1 = time_ms(lambda: hc.halo_conv2d_plain(ctp, wt))
+        def k2_fn():
+            return hc.halo_conv2d(xp, wk, fuse_relu=True, stat_window=full)
+
+        def k1_fn():
+            return hc.halo_conv2d(ctp, wt)
+
         ctp_nchw, wt_oihw = ctp.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
-        l1 = time_ms(lambda: F.conv2d(ctp_nchw, wt_oihw))
+        k2 = graph_ms(k2_fn)
+        p2 = graph_ms(lambda: hc.halo_conv2d_plain(xp, wk, fuse_relu=True, stat_window=full))
+        k1 = graph_ms(k1_fn)
+        l1 = graph_ms(lambda: F.conv2d(ctp_nchw, wt_oihw))
+        p1 = graph_ms(lambda: hc.halo_conv2d_plain(ctp, wt))
+        eager = {"K2": time_ms(k2_fn), "K1": time_ms(k1_fn),
+                 "F.conv2d": time_ms(lambda: F.conv2d(ctp_nchw, wt_oihw))}
         b2, f2 = call_cost(xp, wk, y.shape, True)
         b1, f1 = call_cost(ctp, wt, dx.shape, False)
         for key, ms, pms, lms, nb, fl, err in (("K2", k2, p2, 0.0, b2, f2, e2),
@@ -229,9 +326,10 @@ def phase_kernels():
             t["flops"] += calls * fl
             t["err"] = max(t["err"], err)
             bound_us = 1e6 * max(nb / HBM_BYTES_PER_S, fl / PEAK_BF16_FLOPS)
-            lib = f" F.conv2d {lms:.4f} ms" if key == "K1" else ""
-            print(f"kernels: {key} {tag} x{calls}/step: kernel {ms:.4f} ms  plain "
-                  f"{pms:.4f} ms{lib}  bound {bound_us:.2f} us  "
+            lib = (f" F.conv2d {lms:.4f} ms (eager {eager['F.conv2d']:.4f}; "
+                   f"kernel/F.conv2d {ms / lms:.2f})" if key == "K1" else "")
+            print(f"kernels: {key} {tag} x{calls}/step: kernel {ms:.4f} ms (eager "
+                  f"{eager[key]:.4f})  plain {pms:.4f} ms{lib}  bound {bound_us:.2f} us  "
                   f"{fl / ms / 1e9:.1f} TFLOP/s  max|err| {err:.3g}", flush=True)
     return tot
 
@@ -365,14 +463,14 @@ def phase_flash_kernels():
         err = max(err, e)
         del got
         torch.cuda.synchronize()
-        iters = 3 if tq > 4096 else 10
-        ms = time_ms(lambda: fa.block_flash(q, k, v, *args), iters)
-        pms = time_ms(lambda: fa.block_flash_plain(q, k, v, *args), iters)
+        iters, windows = (3, 3) if tq > 4096 else (10, 5)
+        ms = time_ms(lambda: fa.block_flash(q, k, v, *args), iters, windows)
+        pms = time_ms(lambda: fa.block_flash_plain(q, k, v, *args), iters, windows)
         lms = None
         if lib:
             q4, k4, v4 = (x.float().reshape(1, bh, -1, d) for x in (q, k, v))
             lms = time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal), iters)
+                q4, k4, v4, is_causal=causal), iters, windows)
             del q4, k4, v4
         nb, fl = flash_cost(bh, tq, tk, d, k.element_size(), q_off, k_off, causal)
         t_b, t_o = nb / HBM_BYTES_PER_S, fl / PEAK_FP32_FLOPS
@@ -576,6 +674,7 @@ def main() -> int:
     secs = _build.build_kernels(verbose=True)
     card = card_line()
     print(f"build: {secs:.1f} s on {card}", flush=True)
+    check_sass(_build.library_path("halo_conv"))
     tot = phase_kernels()
     launches = phase_slice()
     k3 = phase_flash_kernels()

@@ -2,8 +2,9 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C interface and compiles on
 its own into ``build/kernels/lib<name>-<hash>.so`` at the repository root
-(git-ignored), where ``<hash>`` covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
+(git-ignored), where ``<hash>`` covers the source, the flags and any
+preprocessor defines, so an edited source is rebuilt and an unchanged one
+is loaded as it is.  Nothing
 is built or loaded at import: the first launch does it, or
 :func:`build_kernels` (which starts one ``nvcc`` per source, all at once).
 """
@@ -18,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -28,7 +29,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -42,27 +43,32 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build_kernels(names: Optional[Iterable[str]] = None,
-                  verbose: bool = False) -> float:
+                  verbose: bool = False, defines: Tuple[str, ...] = ()) -> float:
     """Compile every missing library among ``names`` (default: all), one
     ``nvcc`` per source started together; return the wall seconds.  Raises
     with the compiler's output when a build fails.  ``verbose`` prints
-    ptxas's register / shared-memory / spill report."""
+    ptxas's register / shared-memory / spill report; ``defines`` are
+    passed to nvcc as ``-D`` (a measurement build)."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names or SOURCES:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
@@ -76,13 +82,14 @@ def build_kernels(names: Optional[Iterable[str]] = None,
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    built first if needed."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get((name, defines))
         if lib is None:
-            path = library_path(name)
+            path = library_path(name, defines)
             if not path.exists():
-                build_kernels([name])
-            lib = _LIBS[name] = ctypes.CDLL(str(path))
+                build_kernels([name], defines=defines)
+            lib = _LIBS[(name, defines)] = ctypes.CDLL(str(path))
         return lib

@@ -15,14 +15,28 @@ The op is a stride-1 VALID conv that consumes a margin present in advance
   K1 plus fp32 per-channel sum and sum of squares of the output AFTER its
   cast, over the static window in output coordinates.
 
-Both are one templated CUDA kernel for ``sm_90a``
-(``csrc/halo_conv.cu``, built by ``ops/_build.py``, bound through ctypes).
-Bound on an H100 SXM at the main path's shapes (1x7/7x1, m ∈ {52, 104, 208,
-416}, bf16): 2.48 GFLOP a call, 2.5 µs at the 989 TFLOP/s bf16 peak; 4-14 MB
-a call, 1.3-4.1 µs at 3.35 TB/s.  The design streams Cin through shared
-memory in fixed chunks, so its footprint does not depend on the conv's
-channels or kernel size and every stride-1 conv fits (no counterpart of the
-TPU VMEM caps in ``pallas_conv_eligible``); the source says more.
+Both are one CUDA source for ``sm_90a`` (``csrc/halo_conv.cu``, built by
+``ops/_build.py``, bound through ctypes).  Bound on an H100 SXM at the main
+path's shapes (1x7/7x1, m ∈ {52, 104, 208, 416}, bf16): 2.48 GFLOP a call,
+2.5 µs at the 989 TFLOP/s bf16 peak; 4-14 MB a call, 1.3-4.1 µs at 3.35
+TB/s.  bf16 inputs (the main path) take an implicit GEMM on the tensor
+cores: ``mma.sync`` m16n8k16 with fp32 accumulation over 64-deep slices of
+the flattened (dy, dx, Cin) depth, bf16 operands in a 3-stage ``cp.async``
+ring, ReLU applied to the A fragments in registers.  The library picks
+one of four tiles per launch (128x64, 128x128, 64x64 or 64x32 pixels x
+channels, two blocks an SM) by the number of whole waves its grid takes
+on the card's SMs.  Copies are 16 bytes where Cin, Cout and the pointers
+are 16-byte aligned, 8 bytes where they are 8-byte aligned (m = 52:
+104-byte rows), else one element; ragged depth, pixels and channels are
+zero-filled in both operands.  K2's statistics are folded in a fixed order
+into one partial per (pixel tile, channel), summed here; the library
+reports the row count of each launch's scratch (:func:`stat_rows`) and
+refuses a launch given another.  Two launches are bitwise equal.  fp32
+inputs keep exact fp32 arithmetic on the CUDA cores (TF32 would break the
+8-scaled-ULP contract).
+Shared memory does not grow with the conv's channels or kernel size, so
+every stride-1 conv fits (no counterpart of the TPU VMEM caps in
+``pallas_conv_eligible``); the source says more.
 
 Beside the kernel, :func:`halo_conv2d_plain` computes the same function in
 plain PyTorch.  The wrapper takes it only for CPU tensors; for a CUDA tensor
@@ -103,20 +117,31 @@ def halo_conv2d_plain(x: torch.Tensor, w: torch.Tensor, out_dtype=None,
     return (y, *_window_stats(y, win))
 
 
-def _library():
+_SMS = {}  # SM count by device index
+
+
+def _sms(device: torch.device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device.index]
+
+
+def _library(defines: Tuple[str, ...] = ()):
     from mpi4dl_tpu_torch.ops import _build
 
-    lib = _build.load("halo_conv")
+    lib = _build.load("halo_conv", defines)
     if lib.halo_conv2d_launch.argtypes is None:
-        lib.halo_conv2d_launch.argtypes = [_VP] * 5 + [_I] * 14 + [_VP]
+        lib.halo_conv2d_launch.argtypes = ([_VP] * 5 + [_I] * 14
+                                           + [ctypes.c_longlong, _I, _VP])
         lib.halo_conv2d_launch.restype = _I
-        lib.halo_conv2d_tile_m.restype = _I
+        lib.halo_conv2d_stat_rows.argtypes = [_I] * 8
+        lib.halo_conv2d_stat_rows.restype = ctypes.c_longlong
         lib.halo_conv2d_error_string.argtypes = [_I]
         lib.halo_conv2d_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(x, w, out_dtype, fuse_relu, stat_window):
+def _check(x, w, out_dtype):
     if w.device != x.device:
         raise ValueError(f"x on {x.device} but w on {w.device}")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
@@ -128,40 +153,54 @@ def _launch(x, w, out_dtype, fuse_relu, stat_window):
         raise ValueError(f"shapes x {tuple(x.shape)} w {tuple(w.shape)}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("halo_conv2d takes contiguous NHWC x and HWIO w")
+    if x.shape[1] < w.shape[0] or x.shape[2] < w.shape[1]:
+        raise ValueError(f"input {tuple(x.shape)} smaller than kernel "
+                         f"{w.shape[0]}x{w.shape[1]}")
+
+
+def stat_rows(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Rows of K2's partial-statistics scratch for a launch on CUDA ``x``
+    and ``w``: one per pixel tile of the tile the library takes for it."""
+    n, hp, wp, _ = x.shape
+    kh, kw, _, cout = w.shape
+    return _library().halo_conv2d_stat_rows(
+        n, hp, wp, kh, kw, cout, int(x.dtype == torch.bfloat16), _sms(x.device))
+
+
+def _launch(x, w, out_dtype, fuse_relu, stat_window):
+    _check(x, w, out_dtype)
     n, hp, wp, cin = x.shape
     kh, kw, _, cout = w.shape
     h, wd = hp - kh + 1, wp - kw + 1
-    if h <= 0 or wd <= 0:
-        raise ValueError(f"input {tuple(x.shape)} smaller than kernel {kh}x{kw}")
     lib = _library()
     y = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
     win = (0, 0, 0, 0)
-    ps = pss = None
+    rows, part = 0, None
     if stat_window is not None:
         win = _check_window(stat_window, h, wd)
-        tiles = -(-(n * h * wd) // lib.halo_conv2d_tile_m())
-        ps = torch.empty((tiles, cout), dtype=torch.float32, device=x.device)
-        pss = torch.empty_like(ps)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.halo_conv2d_launch(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(),
-            ps.data_ptr() if ps is not None else None,
-            pss.data_ptr() if pss is not None else None,
-            n, hp, wp, cin, kh, kw, cout,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(fuse_relu),
-            *win, stream,
-        )
+        # One partial sum and sum of squares per (pixel tile of this launch,
+        # channel), in one buffer so that one reduction folds both.
+        rows = stat_rows(x, w)
+        part = torch.empty((2, rows, cout), dtype=torch.float32, device=x.device)
+    err = lib.halo_conv2d_launch(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(),
+        part[0].data_ptr() if part is not None else None,
+        part[1].data_ptr() if part is not None else None,
+        n, hp, wp, cin, kh, kw, cout,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(fuse_relu),
+        *win, rows, _sms(x.device), torch.cuda.current_stream(x.device).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(
             "halo_conv2d kernel launch failed: "
             + lib.halo_conv2d_error_string(err).decode()
         )
-    if ps is None:
+    if part is None:
         LAUNCHES["halo_conv2d"] += 1
         return y
     LAUNCHES["halo_conv2d_stats"] += 1
-    return y, ps.sum(dim=0), pss.sum(dim=0)
+    s, ss = part.sum(dim=1)
+    return y, s, ss
 
 
 def halo_conv2d(x: torch.Tensor, w: torch.Tensor,
@@ -176,7 +215,10 @@ def halo_conv2d(x: torch.Tensor, w: torch.Tensor,
         return halo_conv2d_plain(x, w, out_dtype, fuse_relu, stat_window)
     if x.device.type != "cuda":
         raise RuntimeError(f"halo_conv2d: no kernel for device {x.device}")
-    return _launch(x, w, out_dtype, fuse_relu, stat_window)
+    if x.device.index == torch.cuda.current_device():
+        return _launch(x, w, out_dtype, fuse_relu, stat_window)
+    with torch.cuda.device(x.device):
+        return _launch(x, w, out_dtype, fuse_relu, stat_window)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ without it:
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 """
 
+import contextlib
 import math
 
 import pytest
@@ -59,6 +60,153 @@ def test_bf16_kernels_within_one_ulp_of_the_largest_output(card, kh, kw):
     y = hc.halo_conv2d(x, wk, fuse_relu=True, stat_window=(0, 40, 0, 40))[0]
     ref = hc.halo_conv2d_plain(x, wk, fuse_relu=True, stat_window=(0, 40, 0, 40))[0]
     assert float((y.float() - ref.float()).abs().max()) <= 2.0 ** -7 * float(ref.float().abs().max())
+
+
+# bf16 traps of the tensor-core kernel: (kh, kw, cin, cout, n, h, w).
+# m = 52 has 104-byte pixel and weight rows (8-byte copies) and a partial
+# k16 chunk; 104 and 416 take 16-byte copies; 416 at 32x32 takes the 64x32
+# tiles; Cout 300 over Cin 8 is the kernel registry's case (8-byte weight
+# copies, a ragged n8 tile); Cin 6 / Cout 10 takes the one-element copies.
+BF16_TRAPS = [
+    (1, 7, 52, 52, 1, 40, 40),
+    (7, 1, 52, 52, 2, 33, 29),
+    (1, 7, 104, 104, 1, 32, 32),
+    (7, 1, 104, 104, 1, 32, 32),
+    (7, 1, 416, 416, 1, 32, 32),
+    (1, 7, 416, 416, 1, 32, 32),
+    (3, 3, 8, 300, 1, 128, 256),
+    (5, 5, 24, 40, 2, 17, 23),
+    (3, 3, 6, 10, 1, 9, 7),
+]
+
+
+def _bf16_data(card, kh, kw, cin, cout, n, h, w, shift=0.0, seed=0):
+    """bf16 x (standard normal minus ``shift``) and w scaled as the
+    layers' init, 1/sqrt(fan in)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((n, h + kh - 1, w + kw - 1, cin), generator=g, device=card) - shift
+    bound = 1.0 / math.sqrt(cin * kh * kw)
+    wk = (torch.rand((kh, kw, cin, cout), generator=g, device=card) * 2 - 1) * bound
+    return x.to(torch.bfloat16), wk.to(torch.bfloat16)
+
+
+def _check_bf16(y, ref):
+    """Both sides accumulate in fp32 and round once to bf16: one bf16 ULP
+    of the largest output."""
+    err = float((y.float() - ref.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(ref.float().abs().max()), err
+
+
+def _check_stats(s, ss, s_ref, ss_ref, y_ref, win):
+    h0, h1, w0, w1 = win
+    yw = y_ref[:, h0:h1, w0:w1, :].float()
+    assert float((s - s_ref).abs().max()) <= 2.0 ** -7 * float(yw.abs().sum(dim=(0, 1, 2)).max())
+    assert float((ss - ss_ref).abs().max()) <= 2.0 ** -6 * float((yw * yw).sum(dim=(0, 1, 2)).max())
+
+
+@contextlib.contextmanager
+def _nan_empty(monkeypatch):
+    """torch.empty / empty_like return NaN-filled tensors inside the block,
+    so an output element or scratch row that the kernel does not write
+    shows up in the comparison."""
+    empty, empty_like = torch.empty, torch.empty_like
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", lambda *a, **k: empty(*a, **k).fill_(math.nan))
+        m.setattr(torch, "empty_like", lambda *a, **k: empty_like(*a, **k).fill_(math.nan))
+        yield
+
+
+@pytest.mark.parametrize("kh,kw,cin,cout,n,h,w", BF16_TRAPS)
+def test_bf16_kernels_at_trap_shapes(card, monkeypatch, kh, kw, cin, cout, n, h, w):
+    """K2 with a margin-excluding window and K1, against the plain version;
+    x shifted by -1 so that ReLU zeroes most of it."""
+    x, wk = _bf16_data(card, kh, kw, cin, cout, n, h, w, shift=1.0)
+    win = (1, h - 1, 2, w - 2)
+    with _nan_empty(monkeypatch):
+        y, s, ss = hc.halo_conv2d(x, wk, fuse_relu=True, stat_window=win)
+        y1 = hc.halo_conv2d(x, wk)
+    yr, sr, ssr = hc.halo_conv2d_plain(x, wk, fuse_relu=True, stat_window=win)
+    assert y.dtype == torch.bfloat16 and y.shape == yr.shape == (n, h, w, cout)
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+                and torch.isfinite(ss).all())
+    _check_bf16(y, yr)
+    _check_stats(s, ss, sr, ssr, yr, win)
+    _check_bf16(y1, hc.halo_conv2d_plain(x, wk))
+
+
+@pytest.mark.parametrize("kh,kw,cin,cout,n,h,w", [BF16_TRAPS[1], BF16_TRAPS[6]])
+def test_bf16_in_fp32_out(card, kh, kw, cin, cout, n, h, w):
+    """bf16 products are exact in fp32, so an fp32 output differs from the
+    plain version's only by summation order: within 2^-10 of the sum of
+    the terms' magnitudes."""
+    x, wk = _bf16_data(card, kh, kw, cin, cout, n, h, w)
+    y = hc.halo_conv2d(x, wk, out_dtype=torch.float32, fuse_relu=True)
+    ref = hc.halo_conv2d_plain(x, wk, out_dtype=torch.float32, fuse_relu=True)
+    mag = hc.halo_conv2d_plain(torch.relu(x).abs(), wk.abs(), out_dtype=torch.float32)
+    assert y.dtype == torch.float32
+    assert bool(((y - ref).abs() <= 2.0 ** -10 * mag + 1e-30).all())
+
+
+@pytest.mark.parametrize("kh,kw,cin,cout,n,h,w", [
+    BF16_TRAPS[0], BF16_TRAPS[4], BF16_TRAPS[6],
+    (1, 7, 104, 104, 1, 127, 135),  # the 128x128 tiles
+    (1, 7, 416, 416, 1, 16, 17),    # a grid smaller than one wave
+])
+def test_bf16_kernels_are_deterministic(card, kh, kw, cin, cout, n, h, w):
+    """No float atomics: two launches give bitwise-equal y, sum and
+    sumsq."""
+    x, wk = _bf16_data(card, kh, kw, cin, cout, n, h, w, seed=1)
+    win = (1, h - 1, 2, w - 2)
+    a = hc.halo_conv2d(x, wk, fuse_relu=True, stat_window=win)
+    b = hc.halo_conv2d(x, wk, fuse_relu=True, stat_window=win)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("kh,kw,cin,cout,n,h,w", [
+    (3, 3, 16, 16, 1, 131, 129),   # 16,899 pixels: 133 tiles of 128
+    (1, 7, 104, 104, 1, 127, 135), # 17,145 pixels, the 128x128 tiles
+    (1, 7, 104, 104, 3, 23, 19),   # 1,311 pixels: 21 tiles of 64
+    (7, 1, 416, 416, 1, 31, 33),   # 1,023 pixels, the 64x32 tiles
+    (1, 7, 416, 416, 1, 16, 17),   # 272 pixels, less than a wave
+])
+def test_stats_scratch_follows_the_launch_tile(card, monkeypatch, kh, kw, cin, cout, n, h, w):
+    """N·H·W is a multiple of no tile, and the scratch starts as NaN: the
+    statistics are right only if the wrapper sizes the scratch by this
+    launch's own pixel tile (too many rows sum NaN; the library refuses a
+    launch given another row count)."""
+    x, wk = _bf16_data(card, kh, kw, cin, cout, n, h, w, seed=2)
+    pixels = n * h * w
+    assert pixels % 64 != 0
+    assert hc.stat_rows(x, wk) in (-(-pixels // 64), -(-pixels // 128))
+    win = (0, h, 0, w)
+    with _nan_empty(monkeypatch):
+        y, s, ss = hc.halo_conv2d(x, wk, fuse_relu=True, stat_window=win)
+    yr, sr, ssr = hc.halo_conv2d_plain(x, wk, fuse_relu=True, stat_window=win)
+    _check_bf16(y, yr)
+    _check_stats(s, ss, sr, ssr, yr, win)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_scratch_of_another_size_is_refused(card, dtype):
+    """The library checks the scratch's row count against its own plan for
+    the launch: one row fewer or more is cudaErrorInvalidValue, and nothing
+    runs."""
+    x, wk = _bf16_data(card, 1, 7, 104, 104, 3, 23, 19)
+    x, wk = x.to(dtype), wk.to(dtype)
+    rows = hc.stat_rows(x, wk)
+    lib = hc._library()
+    y = torch.zeros((3, 23, 19, 104), dtype=dtype, device=card)
+    for bad in (rows - 1, rows + 1):
+        part = torch.zeros((2, bad, 104), dtype=torch.float32, device=card)
+        err = lib.halo_conv2d_launch(
+            x.data_ptr(), wk.data_ptr(), y.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), 3, 23, 25, 104, 1, 7, 104,
+            int(dtype == torch.bfloat16), int(dtype == torch.bfloat16), 1,
+            0, 23, 0, 19, bad, hc._sms(card), torch.cuda.current_stream().cuda_stream)
+        assert lib.halo_conv2d_error_string(err).decode() == "invalid argument"
+    torch.cuda.synchronize()
+    assert not bool(y.any())
 
 
 def test_autograd_through_the_kernels(card):

@@ -144,3 +144,48 @@ def test_other_devices_raise():
     w = torch.zeros((3, 3, 2, 2), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         hc.halo_conv2d(x, w)
+
+
+# The bf16 traps of the tensor-core kernel at small sizes, (kh, kw, cin,
+# cout, n, h, w): m = 52 (104-byte rows, a partial k16 chunk), 104 and 416;
+# Cout 300 over Cin 8 (the kernel registry's case, a ragged n8 tile); 5x5;
+# channel counts that are not a multiple of 4.  On the CPU the port runs its
+# plain version; the card tests run the kernel at the same traps.
+BF16_TRAPS = [
+    (1, 7, 52, 52, 1, 10, 12),
+    (7, 1, 52, 52, 2, 9, 7),
+    (1, 7, 104, 104, 1, 8, 8),
+    (7, 1, 416, 416, 1, 4, 5),
+    (3, 3, 8, 300, 1, 6, 10),
+    (5, 5, 24, 40, 2, 7, 9),
+    (3, 3, 6, 10, 1, 9, 7),
+]
+
+
+@pytest.mark.parametrize("stats", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("kh,kw,cin,cout,n,h,w", BF16_TRAPS)
+def test_bf16_plain_matches_pallas_at_trap_shapes(kh, kw, cin, cout, n, h, w, stats):
+    """bf16 in and out with fp32 accumulation on both sides: y within one
+    bf16 rounding (2^-7 of the largest output); K2 on x shifted by -1 (ReLU
+    zeroes most of it) over a window that leaves out a margin, its fp32
+    statistics within 2^-7 of Σ|y| and 2^-6 of Σy² (chip_smoke.py's
+    bounds)."""
+    x, wk = _data(kh, kw, cin, cout, h, w, seed=6, n=n)
+    if stats:
+        x = x - 1.0
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(wk, jnp.bfloat16)
+    xt, wt = torch.from_numpy(x).bfloat16(), torch.from_numpy(wk).bfloat16()
+    win = (1, h - 1, 2, w - 2)
+    kw_args = dict(fuse_relu=True, stat_window=win) if stats else {}
+    want = jpc.halo_conv2d(xb, wb, interpret=True, **kw_args)
+    got = hc.halo_conv2d(xt, wt, **kw_args)
+    want, got = (want, got) if stats else ((want,), (got,))
+    y_ref = np.asarray(want[0], np.float32)
+    assert got[0].dtype == torch.bfloat16 and tuple(got[0].shape) == y_ref.shape == (n, h, w, cout)
+    assert np.max(np.abs(got[0].float().numpy() - y_ref)) <= 2.0 ** -7 * np.max(np.abs(y_ref))
+    if stats:
+        yw = y_ref[:, win[0]:win[1], win[2]:win[3], :]
+        s_err = np.max(np.abs(got[1].numpy() - np.asarray(want[1])))
+        ss_err = np.max(np.abs(got[2].numpy() - np.asarray(want[2])))
+        assert s_err <= 2.0 ** -7 * np.max(np.abs(yw).sum(axis=(0, 1, 2)))
+        assert ss_err <= 2.0 ** -6 * np.max((yw * yw).sum(axis=(0, 1, 2)))
