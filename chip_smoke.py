@@ -9,8 +9,10 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
 1. Build: compile the port's CUDA kernels from ``mpi4dl_tpu_torch/csrc``
    with nvcc (one process per source, all at once); print the build
    seconds and the card's name and power limit; check with ``cuobjdump
-   -sass`` that every bf16 halo-conv kernel issues tensor-core MMAs (HMMA)
-   and, where its copies are 8 or 16 bytes, cp.async (LDGSTS).
+   -sass`` that every bf16 halo-conv kernel and every bf16 block-flash
+   kernel (K3's forward, its backward's dK/dV and dQ passes) issues
+   tensor-core MMAs (HMMA) and, where its copies are 8 or 16 bytes,
+   cp.async (LDGSTS).
 2. Kernels: hold K1 (halo conv), K2 (fused relu→conv→BN-stats) and K1 as
    the dx of K2's backward against their plain PyTorch versions on the card,
    at the eight shapes of the main path (bf16) and at one fp32 ragged-tail
@@ -33,27 +35,40 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    plain (unfused, library-conv) path; the losses agree within rtol 1e-2
    (bf16 keeps 8 bits, and the two paths round conv outputs after
    different fp32 summation orders, so one-ULP flips compound over cells).
-4. K3 kernel: hold the block-flash kernel against its plain version at the
-   kernel registry's two cases, at ``flash_attention_local``'s shapes of
-   the long-context slice (B1 H8 D128, T 4096 and 16384, causal, bf16
-   k/v) and at three ring hops of 4096 (diagonal, past, wholly future).
-   fp32 arithmetic on both sides (TF32 off): m (unmasked rows) and o_hat/l
+4. K3 kernels: hold the block-flash kernel against its plain version at
+   the kernel registry's two cases, at ``flash_attention_local``'s shapes
+   of the long-context slice (B1 H8 D128, T 4096 and 16384, causal, bf16
+   q/k/v) and at three ring hops of 4096 (diagonal, past, wholly future)
+   in fp32 and in bf16.  bf16 q, k and v take the tensor-core kernel,
+   fp32 the CUDA-core one; both are held to m (unmasked rows) and o_hat/l
    within 1e-5·max(1, max|ref|), l within rtol 1e-5, masked rows exactly
-   (0, -1e30, 0).  Time kernel, plain version and, at the local shapes,
-   ``F.scaled_dot_product_attention`` in fp32 with CUDA events (median of
-   5 windows of 10 calls; 3 of 3 at T 16384).
+   (0, -1e30, 0) (TF32 off for the plain side).  At every bf16 shape K3's
+   backward kernel is held against ``block_flash_bwd_plain`` (fp32
+   gradients within rtol 1e-4 / atol 1e-5·max|ref|, the JAX gradient
+   test's tolerance; zero gradients exactly where every key is masked),
+   and two launches of the forward and of the backward are bitwise equal.
+   Time kernel, plain version and, at the local shapes,
+   ``F.scaled_dot_product_attention`` in fp32 and in bf16 (forward, and
+   its backward alone) with CUDA events (median of 5 windows of 10 calls;
+   3 of 3 at T 16384).
 5. Ring: the one-process emulation of a 4-rank ring (per-hop offsets, K3,
    ``mlo_merge``) at B1 H8 D128 T 16384, causal and not, against plain
    single-device attention (rtol/atol 2e-5, tests/flash_ring_check.py);
-   then the port's ``benchmark_ring_attention`` tool at T 16384, whose
-   JSON line must read ``"validation": "pass"``.
+   and the same in bf16 (both sides round the output to bf16 once after
+   fp32 work in another order: |Δ| ≤ 2^-7·max|ref|, one bf16 ULP of the
+   largest output); then the port's ``benchmark_ring_attention`` tool at
+   T 16384, whose JSON line must read ``"validation": "pass"``.
 6. Long-context slice: four ``SeqBlock(1024, 8 heads, mlp 4, causal)``,
    B1 T 16384, bf16 activations and targets, fp32 params, SGD lr 1e-3,
    through ``make_seq_cp_train_step(group=None)``: 1 warm-up and 3 timed
-   steps with finite losses and exactly 4 K3 launches per step;
-   tokens/s and peak memory.  Then one block at T 2048 in fp32: one step
-   through K3 and one through the einsum path; the losses agree within
-   rtol 1e-4.
+   steps with finite losses and exactly 4 K3 and 4 K3-backward launches
+   per step; tokens/s and peak memory.  Then one block at T 2048, one step
+   through K3 and one through the einsum path: in fp32 the losses agree
+   within rtol 1e-4; in bf16 within rtol 1e-3, a quarter of one bf16 ULP
+   (the two attention paths round their bf16 outputs after different fp32
+   summation orders, so some elements differ by one ULP, 2^-8 relative,
+   and the loss, a mean over 2M outputs of the block's bf16 layers,
+   averages those flips).
 7. The kernels' JSON line, the card line, and last the result line.
 """
 
@@ -85,6 +100,7 @@ MAIN_PATH = [
 K1_SRC = "mpi4dl_tpu/ops/pallas_conv.py:41"
 K2_SRC = "mpi4dl_tpu/ops/pallas_conv.py:106"
 K3_SRC = "mpi4dl_tpu/ops/pallas_attention.py:76"
+K3_BWD_SRC = "mpi4dl_tpu/ops/pallas_attention.py:243"
 SOURCE = "mpi4dl_tpu_torch/csrc/halo_conv.cu"
 K3_SOURCE = "mpi4dl_tpu_torch/csrc/block_flash.cu"
 
@@ -103,6 +119,9 @@ K3_SHAPES = [
     ("hop diagonal", 8, 4096, 4096, 128, "float32", True, 4096, 4096, False),
     ("hop past", 8, 4096, 4096, 128, "float32", True, 8192, 0, False),
     ("hop future", 8, 4096, 4096, 128, "float32", True, 0, 4096, False),
+    ("hop diagonal bf16", 8, 4096, 4096, 128, "bfloat16", True, 4096, 4096, False),
+    ("hop past bf16", 8, 4096, 4096, 128, "bfloat16", True, 8192, 0, False),
+    ("hop future bf16", 8, 4096, 4096, 128, "bfloat16", True, 0, 4096, False),
 ]
 K3_MAIN = "local T=16384"   # the slice's K3 call, SEQ_BLOCKS times a step
 
@@ -182,6 +201,27 @@ def sass_counts(lib) -> dict:
                     counts[fn][op] += 1
                     break
     return counts
+
+
+def check_flash_sass(lib) -> None:
+    """Every bf16 kernel of block_flash.cu (forward, dK/dV and dQ passes)
+    issues HMMA, and every one whose copies are 8 or 16 bytes wide issues
+    cp.async (LDGSTS)."""
+    counts = sass_counts(lib)
+    tc = {}
+    for name, c in counts.items():
+        # template <KD, VEC>
+        m = re.search(r"2tc\d+block_flash_(fwd|bwd_kv|bwd_q)_kernelILi\d+ELi(\d+)E", name)
+        if m:
+            tc[name] = c
+            assert c["HMMA"] + c["HGMMA"] > 0, (name, c)
+            assert c["LDGSTS"] > 0 or m.group(2) == "1", (name, c)
+    assert len(tc) == 18, f"{len(tc)} bf16 block-flash kernels in {lib}"
+    hmma = [c["HMMA"] for c in tc.values()]
+    print(f"build: block_flash.cu SASS: {len(tc)} bf16 kernels, HMMA {sum(hmma)} "
+          f"({min(hmma)}-{max(hmma)} a kernel), LDGSTS "
+          f"{sum(c['LDGSTS'] for c in tc.values())}; fp32 kernels HMMA "
+          f"{sum(c['HMMA'] for k, c in counts.items() if k not in tc)}", flush=True)
 
 
 def check_sass(lib) -> None:
@@ -407,11 +447,46 @@ def flash_pairs(t_q: int, t_k: int, q_off: int, k_off: int, causal: bool) -> int
     return sum(min(t_k, max(0, q_off + i - k_off + 1)) for i in range(t_q))
 
 
-def flash_cost(bh, t_q, t_k, d, kv_bytes, q_off, k_off, causal):
-    """(bytes, flops) of one K3 call: q (fp32, scaled) and k, v read once,
-    o_hat, m, l written once; 2 matmuls x 2 flops per visible pair and D."""
-    nbytes = bh * t_q * d * 4 + 2 * bh * t_k * d * kv_bytes + bh * t_q * (d + 2) * 4
+def flash_cost(bh, t_q, t_k, d, q_bytes, kv_bytes, q_off, k_off, causal):
+    """(bytes, flops) of one K3 call: q (bf16 on the tensor-core path, fp32
+    scaled on the CUDA-core one) and k, v read once, o_hat, m, l written
+    once; 2 matmuls x 2 flops per visible pair and D."""
+    nbytes = bh * t_q * d * q_bytes + 2 * bh * t_k * d * kv_bytes + bh * t_q * (d + 2) * 4
     return nbytes, 4 * bh * d * flash_pairs(t_q, t_k, q_off, k_off, causal)
+
+
+def flash_bwd_cost(bh, t_q, t_k, d, q_off, k_off, causal):
+    """(bytes, flops) of one K3 backward call (bf16 q, k, v): q, k, v, dô
+    (fp32), m and dl read once, dq, dk, dv (fp32) written once; 5 matmuls
+    (s, dP, dv, dk, dq) x 2 flops per visible pair and D."""
+    nbytes = (bh * t_q * d * (2 + 4 + 4) + 2 * bh * t_k * d * (2 + 4)
+              + 2 * bh * t_q * 4)
+    return nbytes, 10 * bh * d * flash_pairs(t_q, t_k, q_off, k_off, causal)
+
+
+def bound_of(nbytes, flops, peak):
+    """(ms, 'bytes' or 'operations'): the larger of bytes over the memory
+    rate and flops over ``peak``."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_b, t_o), "bytes" if t_b > t_o else "operations"
+
+
+def check_flash_bwd(name, got, ref):
+    """fp32 gradients within rtol 1e-4 / atol 1e-5·max|ref| (the JAX
+    gradient test's tolerance, tests/test_pallas_attention.py:92-108); a
+    zero reference exactly.  Returns max|Δ| and the largest share of its
+    allowance that an element uses."""
+    err = share = 0.0
+    for g_name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        big = float(r.abs().max())
+        if big == 0.0:
+            assert bool((g == 0).all()), f"{name} {g_name}: not zero"
+            continue
+        diff = (g - r).abs()
+        used = float((diff / (1e-5 * big + 1e-4 * r.abs())).max())
+        assert used <= 1.0, f"{name} {g_name}: {used:.3g} of the allowance"
+        err, share = max(err, float(diff.max())), max(share, used)
+    return err, share
 
 
 def check_flash(name, got, ref, bound: float = 1e-5) -> float:
@@ -440,19 +515,38 @@ def check_flash(name, got, ref, bound: float = 1e-5) -> float:
     return do
 
 
-def phase_flash_kernels():
+def sdpa_ms(q, k, v, causal, dtype, iters, windows):
+    """``F.scaled_dot_product_attention`` in ``dtype`` on the block's
+    ``[BH, T, D]`` tensors: (forward ms, backward-alone ms).  The backward
+    is timed as ``torch.autograd.grad`` of one retained forward."""
     import torch
     import torch.nn.functional as F
+
+    bh, _, d = q.shape
+    q4, k4, v4 = (x.to(dtype).reshape(1, bh, -1, d).requires_grad_() for x in (q, k, v))
+    with torch.no_grad():
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
+                      iters, windows)
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    g = torch.randn_like(out)
+    bwd = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g, retain_graph=True),
+                  iters, windows)
+    return fwd, bwd
+
+
+def phase_flash_kernels():
+    import torch
 
     from mpi4dl_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    main = {}
-    err = 0.0
+    main, main_bwd = {}, {}
+    err = err_bwd = 0.0
     for label, bh, tq, tk, d, dt, causal, q_off, k_off, lib in K3_SHAPES:
         dtype = getattr(torch, dt)
+        tensor_cores = dtype == torch.bfloat16
         q = torch.randn((bh, tq, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((bh, tk, d), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
@@ -460,35 +554,66 @@ def phase_flash_kernels():
         args = (q_off, k_off, causal, scale)
         got = fa.block_flash(q, k, v, *args)
         e = check_flash(f"K3 {label}", got, fa.block_flash_plain(q, k, v, *args))
+        assert all(torch.equal(a, b) for a, b in zip(got, fa.block_flash(q, k, v, *args))), \
+            f"K3 {label}: two launches differ"
         err = max(err, e)
+        iters, windows = (3, 3) if tq > 4096 else (10, 5)
+        eb = None
+        if tensor_cores:
+            do = torch.randn((bh, tq, d), generator=gen, device=dev)
+            dl = torch.randn((bh, tq), generator=gen, device=dev)
+            bargs = (q, k, v, got[1], do, dl, *args)
+            grads = fa.block_flash_bwd(*bargs)
+            eb, share = check_flash_bwd(f"K3 bwd {label}", grads,
+                                        fa.block_flash_bwd_plain(*bargs))
+            assert all(torch.equal(a, b) for a, b in zip(grads, fa.block_flash_bwd(*bargs))), \
+                f"K3 bwd {label}: two launches differ"
+            err_bwd = max(err_bwd, eb)
+            del grads
         del got
         torch.cuda.synchronize()
-        iters, windows = (3, 3) if tq > 4096 else (10, 5)
         ms = time_ms(lambda: fa.block_flash(q, k, v, *args), iters, windows)
         pms = time_ms(lambda: fa.block_flash_plain(q, k, v, *args), iters, windows)
-        lms = None
+        nb, fl = flash_cost(bh, tq, tk, d, 2 if tensor_cores else 4, k.element_size(),
+                            q_off, k_off, causal)
+        peak = PEAK_BF16_FLOPS if tensor_cores else PEAK_FP32_FLOPS
+        bound_ms, bound_by = bound_of(nb, fl, peak)
+        lib_txt, sdpa = "", {}
         if lib:
-            q4, k4, v4 = (x.float().reshape(1, bh, -1, d) for x in (q, k, v))
-            lms = time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal), iters, windows)
-            del q4, k4, v4
-        nb, fl = flash_cost(bh, tq, tk, d, k.element_size(), q_off, k_off, causal)
-        t_b, t_o = nb / HBM_BYTES_PER_S, fl / PEAK_FP32_FLOPS
-        bound_ms = 1e3 * max(t_b, t_o)
-        lib_txt = f"  SDPA fp32 {lms:.4f} ms" if lms is not None else ""
+            for name, ldt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                sdpa[name] = sdpa_ms(q, k, v, causal, ldt, iters, windows)
+            lib_txt = "".join(f"  SDPA {n} fwd {f:.4f} bwd {b:.4f} ms"
+                              for n, (f, b) in sdpa.items())
         tflops = f"{fl / ms / 1e9:.2f} TFLOP/s" if fl else "no visible pair"
         print(f"kernels: K3 {label} q{(bh, tq, d)} k{(bh, tk, d)} {dt} causal={causal} "
-              f"offs=({q_off},{k_off}): kernel {ms:.4f} ms  plain {pms:.4f} ms{lib_txt}"
-              f"  bound {bound_ms:.4f} ms ({'bytes' if t_b > t_o else 'operations'}, "
-              f"fp32 67 TFLOP/s)  {tflops}  max|d(o/l)| {e:.3g}", flush=True)
+              f"offs=({q_off},{k_off}) {'tensor cores' if tensor_cores else 'CUDA cores'}: "
+              f"kernel {ms:.4f} ms  plain {pms:.4f} ms{lib_txt}  bound {bound_ms:.4f} ms "
+              f"({bound_by}, {peak / 1e12:.0f} TFLOP/s)  {tflops}  max|d(o/l)| {e:.3g}",
+              flush=True)
         if label == K3_MAIN:
             main = dict(ms=SEQ_BLOCKS * ms, plain_ms=SEQ_BLOCKS * pms,
-                        library_ms=SEQ_BLOCKS * lms, bytes=SEQ_BLOCKS * nb,
+                        library_ms=SEQ_BLOCKS * sdpa["bf16"][0], bytes=SEQ_BLOCKS * nb,
                         flops=SEQ_BLOCKS * fl)
+        if tensor_cores:
+            bms = time_ms(lambda: fa.block_flash_bwd(*bargs), iters, windows)
+            bpms = time_ms(lambda: fa.block_flash_bwd_plain(*bargs), iters, windows)
+            nbb, flb = flash_bwd_cost(bh, tq, tk, d, q_off, k_off, causal)
+            bbound, bby = bound_of(nbb, flb, PEAK_BF16_FLOPS)
+            blib = (f"  SDPA bf16 bwd {sdpa['bf16'][1]:.4f} ms  fp32 bwd "
+                    f"{sdpa['fp32'][1]:.4f} ms" if lib else "")
+            btf = f"{flb / bms / 1e9:.2f} TFLOP/s" if flb else "no visible pair"
+            print(f"kernels: K3 bwd {label}: kernel {bms:.4f} ms  plain {bpms:.4f} ms{blib}"
+                  f"  bound {bbound:.4f} ms ({bby}, 989 TFLOP/s)  {btf}  max|d grad| "
+                  f"{eb:.3g} ({share:.2f} of the allowance)", flush=True)
+            if label == K3_MAIN:
+                main_bwd = dict(ms=SEQ_BLOCKS * bms, plain_ms=SEQ_BLOCKS * bpms,
+                                library_ms=SEQ_BLOCKS * sdpa["bf16"][1],
+                                bytes=SEQ_BLOCKS * nbb, flops=SEQ_BLOCKS * flb)
+            del bargs, do, dl
         del q, k, v
         torch.cuda.empty_cache()
-    main["err"] = err
-    return main
+    main["err"], main_bwd["err"] = err, err_bwd
+    return main, main_bwd
 
 
 def phase_ring():
@@ -505,14 +630,21 @@ def phase_ring():
     q, k, v = (torch.randn((1, SEQ_T, SEQ_HEADS, 128), generator=gen, device=dev)
                for _ in range(3))
     with torch.no_grad():
-        for causal in (False, True):
-            got = emulated_ring(q, k, v, 4, causal)
-            want = ring_attention(q, k, v, None, 1, causal=causal, use_flash=False)
-            err = float((got - want).abs().max())
-            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-            print(f"ring: emulated 4-rank ring through K3, B1 H8 D128 T {SEQ_T} "
-                  f"causal={causal}: max|err| {err:.3g} vs plain attention", flush=True)
-            del got, want
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+            for causal in (False, True):
+                got = emulated_ring(qd, kd, vd, 4, causal)
+                want = ring_attention(qd, kd, vd, None, 1, causal=causal, use_flash=False)
+                err = float((got.float() - want.float()).abs().max())
+                if dtype == torch.float32:
+                    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+                else:   # one bf16 ULP of the largest output
+                    assert err <= 2.0 ** -7 * float(want.float().abs().max()), err
+                print(f"ring: emulated 4-rank ring through K3, B1 H8 D128 T {SEQ_T} "
+                      f"{dtype} causal={causal}: max|err| {err:.3g} vs plain attention",
+                      flush=True)
+                del got, want
+            del qd, kd, vd
     del q, k, v
     torch.cuda.empty_cache()
     out = tool.measure(tool.get_parser().parse_args(
@@ -548,17 +680,19 @@ def phase_seq_slice():
     reset_all_counts()
     times = []
     for i in range(4):
-        before = fa.LAUNCHES["block_flash"]
+        before = dict(fa.LAUNCHES)
         t0 = time.perf_counter()
         loss = float(step(x, y))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        d3 = fa.LAUNCHES["block_flash"] - before
+        d3 = fa.LAUNCHES["block_flash"] - before["block_flash"]
+        d3b = fa.LAUNCHES["block_flash_bwd"] - before["block_flash_bwd"]
         print(f"seq slice: step {i} loss {loss:.6f} {times[-1] * 1e3:.1f} ms "
-              f"K3 {d3} launches", flush=True)
+              f"K3 {d3} K3-backward {d3b} launches", flush=True)
         assert math.isfinite(loss), f"step {i}: loss {loss}"
-        assert d3 == SEQ_BLOCKS, f"step {i}: {d3} K3 launches (want {SEQ_BLOCKS})"
-    launches = fa.LAUNCHES["block_flash"]
+        assert d3 == d3b == SEQ_BLOCKS, \
+            f"step {i}: {d3} K3, {d3b} K3-backward launches (want {SEQ_BLOCKS})"
+    launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     step_s = sum(times[1:]) / 3
     print(f"seq slice: SeqBlock(1024, 8) x{SEQ_BLOCKS} T {SEQ_T} bs1 bf16: "
@@ -567,25 +701,31 @@ def phase_seq_slice():
     del blocks, step, x, y
     torch.cuda.empty_cache()
 
-    # Reduced depth: one block at T 2048 in fp32, K3 against the einsum path.
+    # Reduced depth: one block at T 2048, K3 against the einsum path, in
+    # fp32 (K3 on the CUDA cores, PyTorch-op backward) and in bf16 (K3 and
+    # its backward kernel).
     xs, ys = (torch.randn((1, 2048, SEQ_D), generator=gen, device=dev) for _ in range(2))
-    losses = []
-    for flash in (True, False):
-        st = make_seq_cp_train_step(seq_blocks(1, dev), None, 1, 1e-3, use_flash=flash)
-        before = fa.LAUNCHES["block_flash"]
-        losses.append(float(st(xs, ys)))
-        assert fa.LAUNCHES["block_flash"] - before == int(flash), "K3 launches"
-    rel = abs(losses[0] - losses[1]) / abs(losses[1])
-    print(f"seq slice: SeqBlock(1024, 8) x1 T 2048 fp32 loss K3 {losses[0]:.8f} "
-          f"einsum {losses[1]:.8f} rel {rel:.2e}", flush=True)
-    assert all(math.isfinite(v) for v in losses), losses
-    assert rel <= 1e-4, f"K3 vs einsum loss rel {rel}"
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-3)):
+        losses = []
+        for flash in (True, False):
+            st = make_seq_cp_train_step(seq_blocks(1, dev), None, 1, 1e-3, use_flash=flash)
+            before = dict(fa.LAUNCHES)
+            losses.append(float(st(xs.to(dtype), ys.to(dtype))))
+            assert fa.LAUNCHES["block_flash"] - before["block_flash"] == int(flash), "K3"
+            want_bwd = int(flash and dtype == torch.bfloat16)
+            assert fa.LAUNCHES["block_flash_bwd"] - before["block_flash_bwd"] == want_bwd
+        rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        print(f"seq slice: SeqBlock(1024, 8) x1 T 2048 {dtype} loss K3 {losses[0]:.8f} "
+              f"einsum {losses[1]:.8f} rel {rel:.2e} (rtol {rtol:g})", flush=True)
+        assert all(math.isfinite(v) for v in losses), losses
+        assert rel <= rtol, f"K3 vs einsum loss rel {rel}"
     return launches
 
 
-def _profile(path: str, title: str, step, kernel_key: str) -> None:
+def _profile(path: str, title: str, step, kernel_keys) -> None:
     """Profile one call of ``step`` (after two warm-ups): device time by
-    kernel name, appended to ``path``, and the share in ``kernel_key``."""
+    kernel name, appended to ``path``, and the share of the kernels whose
+    names hold each of ``kernel_keys``."""
     import torch
 
     for _ in range(2):
@@ -604,15 +744,18 @@ def _profile(path: str, title: str, step, kernel_key: str) -> None:
     kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    key_us = sum(e.self_device_time_total for e in kernels if kernel_key in e.key)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "a") as f:
         f.write(f"== {title}\n{table}\n")
     print(table, flush=True)
+    shares = []
+    for key in kernel_keys:
+        key_us = sum(e.self_device_time_total for e in kernels if key in e.key)
+        shares.append(f"{key} {key_us / 1e3:.1f} ms "
+                      f"({100 * key_us / max(busy_us, 1e-9):.1f}% of busy)")
     print(f"profile: {title}: step {wall_us / 1e3:.1f} ms wall, device busy "
-          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), {kernel_key} "
-          f"{key_us / 1e3:.1f} ms ({100 * key_us / max(busy_us, 1e-9):.1f}% of busy)",
-          flush=True)
+          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%), "
+          + ", ".join(shares), flush=True)
 
 
 def profile_steps(path: str) -> None:
@@ -634,14 +777,15 @@ def profile_steps(path: str) -> None:
     x = torch.randn(shape, device=dev)
     y = torch.zeros((1,), dtype=torch.long, device=dev)
     _profile(path, "AmoebaNet-D(18,416) 1024^2 bs1 bf16", lambda: step(state, x, y),
-             "halo_conv")
+             ("halo_conv",))
     del model, state, step, opt
     torch.cuda.empty_cache()
     seq_step = make_seq_cp_train_step(seq_blocks(SEQ_BLOCKS, dev), None, 1, 1e-3)
     xs, ys = (torch.randn((1, SEQ_T, SEQ_D), device=dev).to(torch.bfloat16)
               for _ in range(2))
     _profile(path, f"SeqBlock(1024,8)x{SEQ_BLOCKS} T {SEQ_T} bs1 bf16",
-             lambda: seq_step(xs, ys), "block_flash")
+             lambda: seq_step(xs, ys),
+             ("block_flash_fwd", "block_flash_bwd", "block_flash_split"))
 
 
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
@@ -675,9 +819,10 @@ def main() -> int:
     card = card_line()
     print(f"build: {secs:.1f} s on {card}", flush=True)
     check_sass(_build.library_path("halo_conv"))
+    check_flash_sass(_build.library_path("block_flash"))
     tot = phase_kernels()
     launches = phase_slice()
-    k3 = phase_flash_kernels()
+    k3, k3_bwd = phase_flash_kernels()
     phase_ring()
     k3_launches = phase_seq_slice()
     if args.profile:
@@ -687,8 +832,11 @@ def main() -> int:
                      tot["K1"]["library_ms"], PEAK_BF16_FLOPS),
         kernel_entry("halo_conv2d_stats", SOURCE, K2_SRC, launches["halo_conv2d_stats"],
                      tot["K2"], None, PEAK_BF16_FLOPS),
-        kernel_entry("block_flash", K3_SOURCE, K3_SRC, k3_launches, k3,
-                     k3["library_ms"], PEAK_FP32_FLOPS),
+        kernel_entry("block_flash", K3_SOURCE, K3_SRC, k3_launches["block_flash"], k3,
+                     k3["library_ms"], PEAK_BF16_FLOPS),
+        kernel_entry("block_flash_bwd", K3_SOURCE, K3_BWD_SRC,
+                     k3_launches["block_flash_bwd"], k3_bwd, k3_bwd["library_ms"],
+                     PEAK_BF16_FLOPS),
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

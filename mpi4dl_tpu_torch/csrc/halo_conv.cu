@@ -92,6 +92,8 @@
 
 #include <atomic>
 
+#include "sm90_mma.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -292,6 +294,8 @@ int launch(const void* x, const void* w, void* y, float* psum, float* psumsq,
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace sm90;  // cp.async, ldmatrix, mma.sync (sm90_mma.cuh)
+
 constexpr int BK = 64;       // depth per pipeline slice (4 k16 MMA steps)
 constexpr int STAGES = 3;    // slices in the shared-memory ring
 constexpr int PAD = 8;       // elements of row padding (bank spread)
@@ -313,68 +317,11 @@ struct Cfg {
                               + 2 * WARPS_M * BN * 4;           // K2 partials
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One VEC-element copy into shared memory; !ok writes zeros.
-template <int VEC>
-__device__ __forceinline__ void copy(__nv_bfloat16* dst,
-                                     const __nv_bfloat16* src, bool ok) {
-  if constexpr (VEC == 1) {
-    *dst = ok ? *src : __float2bfloat16(0.f);
-  } else {
-    const int sz = ok ? VEC * 2 : 0;  // src-size 0: zero fill, nothing read
-    if constexpr (VEC == 8) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                       smem_addr(dst)),
-                   "l"(src), "r"(sz));
-    } else {
-      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                       smem_addr(dst)),
-                   "l"(src), "n"(VEC * 2), "r"(sz));
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 // ReLU of two packed bf16 values: max(v, 0) that propagates NaN.
 __device__ __forceinline__ uint32_t relu2(uint32_t v) {
   uint32_t r;
   asm("max.NaN.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(v), "r"(0u));
   return r;
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 #ifdef HALO_CONV_CLOCKS
@@ -810,22 +757,6 @@ int plan(long long m, int cout, int sms) {
     }
   }
   return best;
-}
-
-// Opts `kernel` into its dynamic shared memory on the current device unless
-// bit d of `done` says it is done there; sets the bit.
-template <typename K>
-cudaError_t opt_in_smem(K kernel, int bytes,
-                        std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
-  if (bit != 0 && (done.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
 }
 
 template <typename C, int VEC, typename Tout>

@@ -2,9 +2,9 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C interface and compiles on
 its own into ``build/kernels/lib<name>-<hash>.so`` at the repository root
-(git-ignored), where ``<hash>`` covers the source, the flags and any
-preprocessor defines, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Nothing
+(git-ignored), where ``<hash>`` covers the source, the shared headers
+``csrc/*.cuh``, the flags and any preprocessor defines, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is.  Nothing
 is built or loaded at import: the first launch does it, or
 :func:`build_kernels` (which starts one ``nvcc`` per source, all at once).
 """
@@ -49,6 +49,7 @@ def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
 
 def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

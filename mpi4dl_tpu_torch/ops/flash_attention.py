@@ -11,22 +11,31 @@ scale) @ kᵀ``.  Under ``causal`` a key is visible where its GLOBAL position
 identity of :func:`mlo_merge`, which the ring relies on.
 
 - **K3**, :func:`block_flash` on CUDA tensors — replaces
-  ``pallas_attention.py::_kernel`` (:76, ``pallas_call`` :165): one CUDA
-  kernel for ``sm_90a`` (``csrc/block_flash.cu``, built by ``ops/_build.py``,
-  bound through ctypes), fp32 arithmetic on the CUDA cores, bf16 k/v
-  converted exactly on load, ``q_off``/``k_off`` runtime arguments so one
-  build serves every ring hop, any Tq/Tk and D ≤ 128.  On an H100 SXM the
-  bound is the fp32 peak (67 TFLOP/s): at the long-context shapes the work
-  is operations, not bytes; the source says more.
+  ``pallas_attention.py::_kernel`` (:76, ``pallas_call`` :165): CUDA
+  kernels for ``sm_90a`` (``csrc/block_flash.cu``, built by
+  ``ops/_build.py``, bound through ctypes), ``q_off``/``k_off`` runtime
+  arguments so one build serves every ring hop, any Tq/Tk and D ≤ 128.
+  The type chooses the kernel (never a failure): bf16 q, k and v (the
+  long-context slice) take the tensor-core kernel (``mma.sync``, q
+  unscaled, ``scale`` applied to the fp32 scores, P split into bf16 hi and
+  lo parts for P·V; within 1e-5·max(1, max|ref|) of the plain version on m
+  and o/l, rtol 1e-5 on l); anything else takes the fp32 CUDA-core kernel
+  with q scaled in fp32 and the same bound.  The source says more.
 - :func:`block_flash_plain` is its plain PyTorch version (the counterpart
   of ``_reference_mlo`` :202-215).  The wrapper takes it only for CPU
   tensors; for a CUDA tensor it launches the kernel or raises.
-  :data:`LAUNCHES` counts the kernel's launches.
-- :func:`block_flash_t` is the trainable form.  Its backward is
-  ``_block_flash_bwd`` (:243-311): one loop over Tk tiles split evenly,
-  never building the ``[Tq, Tk]`` score matrix, in PyTorch ops (the JAX
-  package's backward is not a Pallas kernel either).  It ignores the
-  cotangent of ``m``, as the JAX backward does.
+  :data:`LAUNCHES` counts the kernels' launches.
+- :func:`block_flash_t` is the trainable form; it ignores the cotangent of
+  ``m``, as the JAX backward does (:243-311).  Its backward,
+  :func:`block_flash_bwd`, launches K3's backward kernel for bf16 q, k and
+  v on the card (deterministic, two passes; P, dS and dô split into bf16
+  hi/lo parts; within rtol 1e-4 / atol 1e-5·max|ref| of the plain
+  version, the JAX gradient test's tolerance).  Its plain version
+  :func:`block_flash_bwd_plain` is the JAX backward in PyTorch ops: one
+  loop over Tk tiles split evenly, never building the ``[Tq, Tk]`` score
+  matrix.  It serves CPU tensors and, by choice, fp32 on the card: the JAX
+  package's backward is not a Pallas kernel either, and fp32 is not the
+  slice's path.
 - :func:`mlo_merge` (:317-328) combines two states; :func:`flash_attention_local`
   (:331-347) is exact single-device attention through the block kernel.
 """
@@ -43,13 +52,16 @@ NEG_INF = -1e30  # large-negative, not -inf: exp() of it is exactly 0 and
 BWD_TILE = 512   # key tile of the backward: the tk that flash_attention_local
                  # and the ring pass (pallas_attention.py:343, ring.py:211)
 
-# Launches of the kernel, counted by the wrapper where it launches and
-# nowhere else (CPU tensors never launch).
-LAUNCHES = {"block_flash": 0}
+# Launches of the kernels, counted by the wrappers where they launch and
+# nowhere else (CPU tensors never launch).  One backward call counts once
+# (it splits dô and runs the dK/dV and dQ passes).
+LAUNCHES = {"block_flash": 0, "block_flash_bwd": 0}
 
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TC = 2   # the launcher's code for bf16 q, k and v (tensor cores)
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -86,33 +98,58 @@ def _library():
 
     lib = _build.load("block_flash")
     if lib.block_flash_launch.argtypes is None:
-        lib.block_flash_launch.argtypes = [_VP] * 6 + [_I] * 8 + [_VP]
+        lib.block_flash_launch.argtypes = [_VP] * 6 + [_I] * 8 + [_F, _VP]
         lib.block_flash_launch.restype = _I
+        lib.block_flash_bwd_launch.argtypes = [_VP] * 11 + [_I] * 7 + [_F, _VP]
+        lib.block_flash_bwd_launch.restype = _I
         lib.block_flash_max_d.restype = _I
         lib.block_flash_error_string.argtypes = [_I]
         lib.block_flash_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, q_off, k_off, causal, scale) -> State:
+def _all_bf16(*xs) -> bool:
+    return all(x.dtype == torch.bfloat16 for x in xs)
+
+
+def _check(q, k, v, lib) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if k.dtype not in _KV_CODE or v.dtype != k.dtype:
-        raise TypeError(f"block_flash takes fp32 or bf16 k and v of one type, "
-                        f"got {k.dtype} and {v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or (
             q.shape[0], q.shape[2]) != (k.shape[0], k.shape[2]):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    bh, t_q, d = q.shape
-    lib = _library()
-    if d > lib.block_flash_max_d() or bh > 65535:
-        raise ValueError(f"block_flash kernel takes D <= {lib.block_flash_max_d()} "
-                         f"and BH <= 65535, got D={d}, BH={bh}")
+    if q.shape[2] > lib.block_flash_max_d():
+        raise ValueError(f"block_flash kernel takes D <= {lib.block_flash_max_d()}, "
+                         f"got D={q.shape[2]}")
+
+
+def _offsets(q_off, k_off) -> None:
     for off in (q_off, k_off):
         if not -2**31 <= off < 2**31:
             raise ValueError(f"offset {off} outside int32")
-    qf = (q.float() * scale).contiguous()   # pallas_attention.py:155
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.block_flash_error_string(err).decode())
+
+
+def _launch(q, k, v, q_off, k_off, causal, scale) -> State:
+    lib = _library()
+    _check(q, k, v, lib)
+    _offsets(q_off, k_off)
+    if k.dtype not in _KV_CODE or v.dtype != k.dtype:
+        raise TypeError(f"block_flash takes fp32 or bf16 k and v of one type, "
+                        f"got {k.dtype} and {v.dtype}")
+    bh, t_q, d = q.shape
+    if _all_bf16(q, k, v):
+        kind, qk = _TC, q.contiguous()          # scale applied to the scores
+    else:
+        if bh > 65535:
+            raise ValueError(f"the fp32 block_flash kernel takes BH <= 65535, got {bh}")
+        kind, qk = _KV_CODE[k.dtype], (q.float() * scale).contiguous()  # :155
     k, v = k.contiguous(), v.contiguous()
     o = torch.empty((bh, t_q, d), dtype=torch.float32, device=q.device)
     m = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
@@ -120,13 +157,11 @@ def _launch(q, k, v, q_off, k_off, causal, scale) -> State:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.block_flash_launch(
-            qf.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), bh, t_q, k.shape[1], d,
-            _KV_CODE[k.dtype], int(causal), int(q_off), int(k_off), stream,
+            qk.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), bh, t_q, k.shape[1], d, kind,
+            int(causal), int(q_off), int(k_off), float(scale), stream,
         )
-    if err != 0:
-        raise RuntimeError("block_flash kernel launch failed: "
-                           + lib.block_flash_error_string(err).decode())
+    _raise_on(lib, err, "block_flash")
     LAUNCHES["block_flash"] += 1
     return o, m, l
 
@@ -135,10 +170,10 @@ def block_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_off: int = 0, k_off: int = 0, causal: bool = False,
                 scale: float = 1.0) -> State:
     """K3: the flash state ``(o_hat, m, l)`` of one block.  q ``[BH, Tq,
-    D]`` (any float type; scaled in fp32), k and v ``[BH, Tk, D]`` fp32 or
-    bf16, ``q_off``/``k_off`` the blocks' global positions.  CPU tensors
-    take :func:`block_flash_plain`; CUDA tensors launch the kernel (or
-    raise)."""
+    D]`` (any float type), k and v ``[BH, Tk, D]`` fp32 or bf16 (all three
+    bf16: the tensor-core kernel), ``q_off``/``k_off`` the blocks' global
+    positions.  CPU tensors take :func:`block_flash_plain`; CUDA tensors
+    launch the kernel (or raise)."""
     q_off, k_off = int(q_off), int(k_off)
     if q.device.type == k.device.type == v.device.type == "cpu":
         return block_flash_plain(q, k, v, q_off, k_off, causal, scale)
@@ -147,10 +182,16 @@ def block_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, q_off, k_off, causal, scale)
 
 
-def _block_flash_bwd(q, k, v, m, do, dl, q_off, k_off, causal, scale,
-                     tk: int = BWD_TILE):
-    """Backward of one block (``pallas_attention.py:243-311``), a loop over
-    Tk tiles split evenly.  With P = exp(s - m) and m held constant:
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.no_grad()
+def block_flash_bwd_plain(q, k, v, m, do, dl, q_off: int = 0, k_off: int = 0,
+                          causal: bool = False, scale: float = 1.0,
+                          tk: int = BWD_TILE) -> Grads:
+    """Plain version of K3's backward (``pallas_attention.py:243-311``), a
+    loop over Tk tiles split evenly; fp32 ``(dq, dk, dv)``.  With P =
+    exp(s - m) and m held constant:
         dP = dô Vᵀ + dl 1ᵀ;  ds = P ⊙ dP
         dq = ds K · scale;  dk = dsᵀ (q · scale);  dv = Pᵀ dô
     """
@@ -175,7 +216,55 @@ def _block_flash_bwd(q, k, v, m, do, dl, q_off, k_off, causal, scale,
         dq += torch.matmul(ds, kt)
         dk[:, j0:j1] = torch.matmul(ds.transpose(1, 2), qf)
         dv[:, j0:j1] = torch.matmul(p.transpose(1, 2), do)
-    return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq * scale, dk, dv
+
+
+def _launch_bwd(q, k, v, m, do, dl, q_off, k_off, causal, scale) -> Grads:
+    lib = _library()
+    _check(q, k, v, lib)
+    _offsets(q_off, k_off)
+    if not _all_bf16(q, k, v):
+        raise TypeError(f"the block_flash backward kernel takes bf16 q, k and v, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    bh, t_q, d = q.shape
+    if any(x.device != q.device for x in (m, do, dl)):
+        raise ValueError(f"m on {m.device}, dô on {do.device}, dl on {dl.device}; "
+                         f"q on {q.device}")
+    if m.shape != (bh, t_q) or dl.shape != (bh, t_q) or do.shape != q.shape:
+        raise ValueError(f"m {tuple(m.shape)}, dl {tuple(dl.shape)}, dô "
+                         f"{tuple(do.shape)} for q {tuple(q.shape)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    m, do, dl = (x.float().contiguous() for x in (m, do, dl))
+    do_hi = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    do_lo = torch.empty_like(do_hi)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.block_flash_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
+            dl.data_ptr(), do_hi.data_ptr(), do_lo.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, t_q, k.shape[1], d, int(causal),
+            int(q_off), int(k_off), float(scale), stream,
+        )
+    _raise_on(lib, err, "block_flash backward")
+    LAUNCHES["block_flash_bwd"] += 1
+    return dq, dk, dv
+
+
+def block_flash_bwd(q, k, v, m, do, dl, q_off: int = 0, k_off: int = 0,
+                    causal: bool = False, scale: float = 1.0) -> Grads:
+    """K3's backward: fp32 ``(dq, dk, dv)`` of one block given its forward
+    ``m`` and the cotangents ``do`` of ``o_hat`` and ``dl`` of ``l``.  CPU
+    tensors take :func:`block_flash_bwd_plain`; CUDA tensors launch the
+    kernel, which takes bf16 q, k and v (or raise)."""
+    q_off, k_off = int(q_off), int(k_off)
+    if q.device.type == k.device.type == v.device.type == "cpu":
+        return block_flash_bwd_plain(q, k, v, m, do, dl, q_off, k_off, causal, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"block_flash_bwd: no kernel for device {q.device}")
+    return _launch_bwd(q, k, v, m, do, dl, q_off, k_off, causal, scale)
 
 
 class _BlockFlashFn(torch.autograd.Function):
@@ -190,7 +279,15 @@ class _BlockFlashFn(torch.autograd.Function):
     def backward(ctx, do, dm, dl):
         del dm  # zero almost everywhere; the JAX backward drops it too
         q, k, v, m = ctx.saved_tensors
-        return (*_block_flash_bwd(q, k, v, m, do, dl, *ctx.args),
+        if q.is_cuda and not _all_bf16(q, k, v):
+            # fp32 on the card keeps the PyTorch-op backward, by type: the
+            # JAX package's backward is not a Pallas kernel, and fp32 is not
+            # the slice's path.
+            grads = block_flash_bwd_plain(q, k, v, m, do, dl, *ctx.args)
+        else:
+            grads = block_flash_bwd(q, k, v, m, do, dl, *ctx.args)
+        dq, dk, dv = grads
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None)
 
 

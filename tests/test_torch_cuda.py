@@ -301,6 +301,7 @@ def test_block_flash_autograd_on_card_matches_cpu(card):
     g = torch.Generator().manual_seed(1)
     qkv = [torch.randn((1, 300, 2, 64), generator=g) for _ in range(3)]
     grads = []
+    bwd_before = fa.LAUNCHES["block_flash_bwd"]
     for dev in (card, torch.device("cpu")):
         ts = [x.to(dev).requires_grad_() for x in qkv]
         out = fa.flash_attention_local(*ts, causal=True)
@@ -308,6 +309,92 @@ def test_block_flash_autograd_on_card_matches_cpu(card):
         grads.append([t.grad.cpu() for t in ts])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert fa.LAUNCHES["block_flash_bwd"] == bwd_before  # fp32: PyTorch ops
+
+
+# bf16 q, k, v: the tensor-core forward and the backward kernel at their
+# traps, (Tq, Tk, D, causal, q_off, k_off): tails of both tiles at D 40
+# (80-byte rows: 16-byte copies), D 100 (200-byte rows: 8-byte copies), D 33
+# (one-element copies), a ring hop with partly masked rows, the diagonal of
+# a hop at full width, and a block wholly in the future.
+BF16_FLASH_TRAPS = [
+    (77, 201, 40, True, 0, 0),
+    (77, 201, 100, False, 0, 0),
+    (77, 201, 33, True, 20, 0),
+    (77, 201, 40, True, 130, 40),
+    (128, 128, 128, True, 128, 128),
+    (77, 201, 40, True, 0, 500),
+]
+
+
+def _bwd_check(got, want, rtol=1e-4, atol=1e-5):
+    """rtol, atol scaled by max|ref| (the JAX gradient test's tolerance); a
+    zero reference exactly."""
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        big = float(w.abs().max())
+        if big == 0.0:
+            assert bool((g == 0).all())
+        else:
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol * big)
+
+
+@pytest.mark.parametrize("t_q,t_k,d,causal,q_off,k_off", BF16_FLASH_TRAPS)
+def test_bf16_block_flash_forward_and_backward_kernels(card, t_q, t_k, d, causal,
+                                                       q_off, k_off):
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=card).manual_seed(2)
+    q = torch.randn((3, t_q, d), generator=g, device=card).to(torch.bfloat16)
+    k, v = (torch.randn((3, t_k, d), generator=g, device=card).to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn((3, t_q, d), generator=g, device=card)
+    dl = torch.randn((3, t_q), generator=g, device=card)
+    args = (q_off, k_off, causal, d ** -0.5)
+    before = dict(fa.LAUNCHES)
+    got = fa.block_flash(q, k, v, *args)
+    again = fa.block_flash(q, k, v, *args)
+    grads = fa.block_flash_bwd(q, k, v, got[1], do, dl, *args)
+    grads2 = fa.block_flash_bwd(q, k, v, got[1], do, dl, *args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["block_flash"] == before["block_flash"] + 2
+    assert fa.LAUNCHES["block_flash_bwd"] == before["block_flash_bwd"] + 2
+    _flash_check(got, fa.block_flash_plain(q, k, v, *args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    _bwd_check(grads, fa.block_flash_bwd_plain(q, k, v, got[1], do, dl, *args))
+
+
+def test_block_flash_bwd_kernel_takes_bf16_only(card):
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros((1, 8, 16), device=card)
+    with pytest.raises(TypeError, match="bf16 q, k and v"):
+        fa.block_flash_bwd(q, q, q, q[..., 0], q, q[..., 0])
+
+
+def test_bf16_flash_attention_local_autograd_matches_cpu(card):
+    """bf16 q, k, v: the card's kernels (forward and backward) against the
+    plain versions on the CPU, through flash_attention_local.  Both sides
+    round the output and each gradient to bf16 once after fp32 work that
+    differs in order, so values may differ by one bf16 ULP of the largest
+    at each of those two roundings: |Δ| ≤ 2^-6·max|ref|."""
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(3)
+    qkv = [torch.randn((1, 300, 2, 64), generator=g).to(torch.bfloat16) for _ in range(3)]
+    grads = []
+    before = fa.LAUNCHES["block_flash_bwd"]
+    for dev in (card, torch.device("cpu")):
+        ts = [x.to(dev).requires_grad_() for x in qkv]
+        out = fa.flash_attention_local(*ts, causal=True)
+        (out.float() ** 2).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    assert fa.LAUNCHES["block_flash_bwd"] == before + 1
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(want.float().abs().max()), err
 
 
 def test_seqblock_step_launches_k3_once_per_block(card):
@@ -322,3 +409,4 @@ def test_seqblock_step_launches_k3_once_per_block(card):
     loss = float(step(x, y))
     assert math.isfinite(loss)
     assert fa.LAUNCHES["block_flash"] == 3
+    assert fa.LAUNCHES["block_flash_bwd"] == 3
