@@ -69,7 +69,34 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    summation orders, so some elements differ by one ULP, 2^-8 relative,
    and the loss, a mean over 2M outputs of the block's bf16 layers,
    averages those flips).
-7. The kernels' JSON line, the card line, and last the result line.
+7. SP kernels: the spatial-parallel paths' K1/K2 calls, found by a dry run
+   of each step on the meta device (``halo_conv.count_dispatches``: the
+   port's dispatch at full size, no memory): every distinct shape and
+   statistics window held against the plain version (phase 2's bf16
+   tolerances, the statistics over the call's window), two launches
+   bitwise equal, device time of kernel, plain version and (K1)
+   ``F.conv2d``, and the bound; per path, the per-step sums.
+8. SP slice: AmoebaNet-D(18, 416), 2048², batch 1, 1000 classes, a 2x2
+   square grid of 1024² tiles, halo-D2, fused kernels on, bf16 over fp32
+   params, SGD lr 1e-3, remat off, through ``make_spatial_train_step`` on
+   the one-process tile grid: 1 warm-up and 3 timed steps with finite
+   losses and, each step, exactly the K1/K2 launches of its dry run; img/s,
+   peak memory, and the first step's loss (the four-card NCCL runner's
+   first step from the same seed is held to it).  Then ResNet-110 v2 at
+   1024², same grid and settings: 1 warm-up and 2 timed steps, likewise.
+9. SP checks at reduced depth, AmoebaNet-D(3, 416) at 512² on the 2x2
+   grid: D2 through the kernels against D2 through the plain path, losses
+   within rtol 1e-2 in bf16 (the reason of phase 3) and 1e-5 in fp32
+   (tests/test_d2.py); D1 against the single-device step in fp32 over two
+   steps, losses within rtol 1e-4 and parameters and running statistics
+   within rtol 1e-3 / atol 1e-4 (tests/test_spatial.py).
+10. The kernels' JSON line, the card line, and last the result line.  K1's
+   and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
+   ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
+   step for the times); ``by_path`` gives per-step launches and times of
+   each path (single-card AmoebaNet, SP AmoebaNet, SP ResNet).
+
+Phases 7-9 run between phases 3 and 4.
 """
 
 from __future__ import annotations
@@ -439,6 +466,258 @@ def phase_slice():
     return launches
 
 
+# The spatial-parallel slice: the reference's best published run, "SP square
+# + halo-D2" (README "Measured"), at full width on the one-process 2x2 tile
+# grid, and ResNet-110 v2 (bench.py:153-163) beside it.
+SP_AMOEBA = dict(arch="amoebanet", image=2048, depth=18)
+SP_RESNET = dict(arch="resnet", image=1024, depth=110)
+SP_PATHS = {"amoebanet_2048_sp_d2": SP_AMOEBA, "resnet110_1024_sp_d2": SP_RESNET}
+
+
+def sp_parts(dev, arch, image, depth, d2=True, pallas=True, dtype=None):
+    """(model, step, state) of an SP training step on a 2x2 square grid of
+    tiles in this process: 416 filters (AmoebaNet), 1000 classes, batch 1,
+    SGD lr 1e-3, remat off, bf16 compute unless ``dtype`` says otherwise,
+    weights from seed 0 (the SP runners' ``--seed`` default)."""
+    import torch
+
+    from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
+    from mpi4dl_tpu_torch.models import amoebanetd, get_resnet_v2
+    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_spatial_train_step
+
+    shape = (1, image, image, 3)
+    if arch == "amoebanet":
+        model = amoebanetd(shape, num_classes=1000, num_layers=depth,
+                           num_filters=416, device=dev, seed=0)
+    else:
+        model = get_resnet_v2(shape, depth, 1000, device=dev, seed=0)
+    sp = spatial_ctx_for("square", 4, tiles=TileGrid(2, 2), d2_mode=d2,
+                         use_pallas_conv=pallas)
+    opt = Optimizer("sgd", lr=1e-3)
+    step = make_spatial_train_step(model, opt, sp,
+                                   compute_dtype=dtype or torch.bfloat16)
+    return model, step, TrainState.create(model, opt)
+
+
+def sp_batch(dev, image):
+    """The SP runners' synthetic batch for --seed 0 (seed 1, image then label)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn((1, image, image, 3), generator=gen, device=dev)
+    return x, torch.randint(0, 1000, (1,), generator=gen, device=dev)
+
+
+def sp_dry_run(arch, image, depth, **kw):
+    """The K1/K2 calls of one SP step as the port dispatches them: the
+    step on the meta device (shapes only), each call recorded
+    (``halo_conv.count_dispatches``)."""
+    import warnings
+
+    import torch
+
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+
+    meta = torch.device("meta")
+    _, step, state = sp_parts(meta, arch, image, depth, **kw)
+    with warnings.catch_warnings(), hc.count_dispatches() as seen:
+        warnings.simplefilter("ignore")
+        step(state, torch.zeros((1, image, image, 3), device=meta),
+             torch.zeros((1,), dtype=torch.long, device=meta))
+    return seen
+
+
+def phase_sp_kernels(paths):
+    """K1 and K2 at every distinct shape that the SP paths' dry runs
+    record (``paths``: name -> Dispatches): held against the plain version
+    (bf16 tolerances of phase 2, statistics over the call's window), two
+    launches bitwise equal, and device time of kernel, plain version and
+    (K1) ``F.conv2d``.  Returns per path the per-step sums."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    bf = torch.bfloat16
+    uses = collections.defaultdict(collections.Counter)
+    for name, seen in paths.items():
+        for call in seen.calls:
+            kernel, phase, xs, ws, _, relu, win = call
+            uses[(kernel, xs, ws, relu, win)][(name, phase)] += 1
+    per = {}
+    for key, by_path in uses.items():
+        kernel, xs, ws, relu, win = key
+        kh, kw, cin, cout = ws
+        x = torch.randn(xs, generator=gen, device=dev).to(bf)
+        w = ((torch.rand(ws, generator=gen, device=dev) * 2 - 1)
+             / math.sqrt(cin * kh * kw)).to(bf)
+        got = hc.halo_conv2d(x, w, fuse_relu=relu, stat_window=win)
+        ref = hc.halo_conv2d_plain(x, w, fuse_relu=relu, stat_window=win)
+        tag = f"{kernel} x{tuple(xs)} w{tuple(ws)} win {win}"
+        if win is None:
+            y, yr = got, ref
+        else:
+            (y, s, ss), (yr, sr, ssr) = got, ref
+            h0, h1, w0, w1 = win
+            check_stats_bf16(tag, s, ss, sr, ssr, yr[:, h0:h1, w0:w1])
+        err = check_bf16(tag, y, yr)
+        again = hc.halo_conv2d(x, w, fuse_relu=relu, stat_window=win)
+        same = (torch.equal(y, again) if win is None
+                else all(torch.equal(a, b) for a, b in zip(got, again)))
+        assert same, f"{tag}: two launches differ"
+        torch.cuda.synchronize()
+        del got, ref, again
+        iters = 20 if x.numel() * 4 <= (64 << 20) else 5
+        k_ms = graph_ms(lambda: hc.halo_conv2d(x, w, fuse_relu=relu, stat_window=win), iters)
+        p_ms = graph_ms(lambda: hc.halo_conv2d_plain(x, w, fuse_relu=relu,
+                                                     stat_window=win), iters)
+        l_ms = None
+        if win is None and not relu:
+            x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+            l_ms = graph_ms(lambda: F.conv2d(x_nchw, w_oihw), iters)
+        nb, fl = call_cost(x, w, y.shape, win is not None)
+        per[key] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bytes=nb, flops=fl, err=err)
+        bound_us = 1e6 * max(nb / HBM_BYTES_PER_S, fl / PEAK_BF16_FLOPS)
+        lib = f"  F.conv2d {l_ms:.4f} ms" if l_ms is not None else ""
+        print(f"sp kernels: {tag} {dict(by_path)}: kernel {k_ms:.4f} ms  plain "
+              f"{p_ms:.4f} ms{lib}  bound {bound_us:.2f} us  "
+              f"{fl / k_ms / 1e9:.1f} TFLOP/s  max|err| {err:.3g}", flush=True)
+        del x, w, y, yr
+        torch.cuda.empty_cache()
+    sums = {}
+    for name, seen in paths.items():
+        sums[name] = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0,
+                              err=0.0, launches=0) for k in ("K1", "K2")}
+        for key, by_path in uses.items():
+            n = sum(c for (pth, _), c in by_path.items() if pth == name)
+            if not n:
+                continue
+            t = sums[name]["K1" if key[0] == "halo_conv2d" else "K2"]
+            m = per[key]
+            for f in ("ms", "plain_ms", "bytes", "flops"):
+                t[f] += n * m[f]
+            t["library_ms"] = (None if t["library_ms"] is None or m["library_ms"] is None
+                               else t["library_ms"] + n * m["library_ms"])
+            t["err"] = max(t["err"], m["err"])
+            t["launches"] += n
+        for k, t in sums[name].items():
+            print(f"sp kernels: {name} {k}: {t['launches']} launches a step, kernel "
+                  f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, F.conv2d "
+                  f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 3)}"
+                  f" ms, bound {bound_of(t['bytes'], t['flops'], PEAK_BF16_FLOPS)[0]:.3f}"
+                  " ms a step", flush=True)
+    return sums
+
+
+def sp_train(dev, parts, pred, steps, label):
+    """Drive an SP step ``steps`` times (the first a warm-up) from the
+    counts' zero, holding each step's K1/K2 launches to the dry run's
+    ``pred``; returns (losses, seconds per timed step, peak bytes,
+    launches)."""
+    import torch
+
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+
+    model, step, state = parts
+    x, y = sp_batch(dev, model.in_shape[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    losses, times = [], []
+    for i in range(steps):
+        before = dict(hc.LAUNCHES)
+        t0 = time.perf_counter()
+        state, m = step(state, x, y)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = {k: hc.LAUNCHES[k] - before[k] for k in hc.LAUNCHES}
+        print(f"{label}: step {i} loss {losses[-1]:.6f} {times[-1] * 1e3:.1f} ms "
+              f"K2 {got['halo_conv2d_stats']} K1 {got['halo_conv2d']} launches", flush=True)
+        assert math.isfinite(losses[-1]), f"step {i}: loss {losses[-1]}"
+        assert got == pred.counts, f"step {i}: launches {got}, dispatch predicts {pred.counts}"
+    return losses, times[1:], torch.cuda.max_memory_allocated(), dict(hc.LAUNCHES)
+
+
+def phase_sp_slice(preds):
+    """The full-width SP AmoebaNet-D step and the ResNet-110 v2 SP step."""
+    import torch
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, cfg, steps in (("amoebanet_2048_sp_d2", SP_AMOEBA, 4),
+                             ("resnet110_1024_sp_d2", SP_RESNET, 3)):
+        parts = sp_parts(dev, cfg["arch"], cfg["image"], cfg["depth"])
+        losses, times, peak, launches = sp_train(dev, parts, preds[name], steps, name)
+        ips = len(times) / sum(times)
+        print(f"sp slice: {name} bs1 bf16 2x2 D2: {ips:.3f} img/s "
+              f"({1e3 * sum(times) / len(times):.1f} ms/step), peak {peak / 2**30:.2f} GiB, "
+              f"first-step loss {losses[0]:.6f}", flush=True)
+        out[name] = launches
+        del parts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp_checks():
+    """Reduced depth on the card: SP D2 through the kernels against SP D2
+    through the plain path (bf16 rtol 1e-2, fp32 rtol 1e-5); SP D1 against
+    the single-device step in fp32 (tests/test_spatial.py's tolerances)."""
+    import warnings
+
+    import torch
+
+    from mpi4dl_tpu_torch.models import amoebanetd
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_train_step
+
+    warnings.simplefilter("ignore")  # the pad-once pool notice
+    dev = torch.device("cuda")
+    x, y = sp_batch(dev, 512)
+    for dtype, rtol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        losses = []
+        for pallas in (True, False):
+            _, step, state = sp_parts(dev, "amoebanet", 512, 3, pallas=pallas, dtype=dtype)
+            losses.append(float(step(state, x, y)[1]["loss"]))
+        rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        print(f"sp checks: AmoebaNet-D(3,416) 512^2 2x2 D2 {dtype}: loss kernels "
+              f"{losses[0]:.6f} plain {losses[1]:.6f} rel {rel:.2e}", flush=True)
+        assert all(math.isfinite(v) for v in losses) and rel <= rtol, (losses, rtol)
+    models, steps, states = [], [], []
+    for sp in (False, True):
+        if sp:
+            mdl, st, state = sp_parts(dev, "amoebanet", 512, 3, d2=False,
+                                      dtype=torch.float32)
+        else:
+            mdl = amoebanetd((1, 512, 512, 3), num_classes=1000, num_layers=3,
+                             num_filters=416, device=dev, seed=0)
+            opt = Optimizer("sgd", lr=1e-3)
+            st = make_train_step(mdl, opt, pallas_conv=True)
+            state = TrainState.create(mdl, opt)
+        models.append(mdl)
+        steps.append(st)
+        states.append(state)
+    for i in range(2):
+        l = [float(steps[j](states[j], x, y)[1]["loss"]) for j in range(2)]
+        print(f"sp checks: AmoebaNet-D(3,416) 512^2 fp32 step {i}: one card {l[0]:.7f}, "
+              f"SP D1 2x2 {l[1]:.7f}", flush=True)
+        assert abs(l[1] - l[0]) <= 1e-4 * abs(l[0]), l
+    worst = 0.0
+    for a, b in zip(models[0].state_dict().values(), models[1].state_dict().values()):
+        torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-4)
+        worst = max(worst, float((b - a).abs().max()))
+    print(f"sp checks: SP D1 vs one card after 2 steps: max|Δ| {worst:.3g} over "
+          "parameters and running statistics (rtol 1e-3, atol 1e-4)", flush=True)
+    del models, steps, states
+    torch.cuda.empty_cache()
+
+
 def flash_pairs(t_q: int, t_k: int, q_off: int, k_off: int, causal: bool) -> int:
     """The (query, key) pairs a block's mask leaves visible: the work this
     call's data needs."""
@@ -780,6 +1059,13 @@ def profile_steps(path: str) -> None:
              ("halo_conv",))
     del model, state, step, opt
     torch.cuda.empty_cache()
+    for name, cfg in SP_PATHS.items():
+        model, step, state = sp_parts(dev, cfg["arch"], cfg["image"], cfg["depth"])
+        x, y = sp_batch(dev, cfg["image"])
+        _profile(path, f"{name} bs1 bf16, one-process 2x2 grid",
+                 lambda: step(state, x, y), ("halo_conv",))
+        del model, step, state
+        torch.cuda.empty_cache()
     seq_step = make_seq_cp_train_step(seq_blocks(SEQ_BLOCKS, dev), None, 1, 1e-3)
     xs, ys = (torch.randn((1, SEQ_T, SEQ_D), device=dev).to(torch.bfloat16)
               for _ in range(2))
@@ -799,6 +1085,13 @@ def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
         "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": library_ms,
     }
+
+
+def path_entry(t):
+    """One path's per-step sums of a halo-conv kernel, for ``by_path``."""
+    b_ms, b_by = bound_of(t["bytes"], t["flops"], PEAK_BF16_FLOPS)
+    return {"launches_per_step": t["launches"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"] or None, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def main() -> int:
@@ -822,16 +1115,36 @@ def main() -> int:
     check_flash_sass(_build.library_path("block_flash"))
     tot = phase_kernels()
     launches = phase_slice()
+    preds = {name: sp_dry_run(cfg["arch"], cfg["image"], cfg["depth"])
+             for name, cfg in SP_PATHS.items()}
+    for name, seen in preds.items():
+        print(f"dry run: {name}: K2 {seen.counts['halo_conv2d_stats']} K1 "
+              f"{seen.counts['halo_conv2d']} launches a step", flush=True)
+    sp_tot = phase_sp_kernels(preds)
+    sp_launches = phase_sp_slice(preds)
+    phase_sp_checks()
     k3, k3_bwd = phase_flash_kernels()
     phase_ring()
     k3_launches = phase_seq_slice()
     if args.profile:
         profile_steps(args.profile)
+    main_sp = "amoebanet_2048_sp_d2"
+    tot["K1"]["launches"] = tot["K2"]["launches"] = 80
+
+    def by_path(key):
+        out = {"amoebanet_1024_one_card": path_entry(tot[key])}
+        out.update({name: path_entry(sp_tot[name][key]) for name in SP_PATHS})
+        return out
+
     entries = [
-        kernel_entry("halo_conv2d", SOURCE, K1_SRC, launches["halo_conv2d"], tot["K1"],
-                     tot["K1"]["library_ms"], PEAK_BF16_FLOPS),
-        kernel_entry("halo_conv2d_stats", SOURCE, K2_SRC, launches["halo_conv2d_stats"],
-                     tot["K2"], None, PEAK_BF16_FLOPS),
+        dict(kernel_entry("halo_conv2d", SOURCE, K1_SRC,
+                          sp_launches[main_sp]["halo_conv2d"], sp_tot[main_sp]["K1"],
+                          sp_tot[main_sp]["K1"]["library_ms"], PEAK_BF16_FLOPS),
+             by_path=by_path("K1")),
+        dict(kernel_entry("halo_conv2d_stats", SOURCE, K2_SRC,
+                          sp_launches[main_sp]["halo_conv2d_stats"], sp_tot[main_sp]["K2"],
+                          None, PEAK_BF16_FLOPS),
+             by_path=by_path("K2")),
         kernel_entry("block_flash", K3_SOURCE, K3_SRC, k3_launches["block_flash"], k3,
                      k3["library_ms"], PEAK_BF16_FLOPS),
         kernel_entry("block_flash_bwd", K3_SOURCE, K3_BWD_SRC,

@@ -6,7 +6,10 @@
 
 builds what the JAX package's ``bench._build_step`` builds (SGD, lr from
 ``--lr``, random weights from ``--seed``) and prints one line per step
-(loss, img/s) and a last JSON line with the kernels' launch counts.
+(loss, img/s) and a last JSON line with the kernels' launch counts.  It
+trains on one device: the spatial flags are ignored, as the JAX package's
+``lp`` family ignores them; the spatial-parallel runners are
+``mpi4dl_tpu_torch/benchmarks/spatial_parallelism/``.
 """
 
 from __future__ import annotations

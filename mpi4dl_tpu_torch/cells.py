@@ -69,7 +69,9 @@ def checkpointed_apply(fn: Callable, x, ctx: ApplyCtx):
 
 
 class CellModel(nn.Module):
-    """A model: ordered cells + metadata."""
+    """A model: ordered cells + metadata.  ``spatial_until`` is the number
+    of leading cells that run under spatial sharding (0: unset, which the
+    spatial engine reads as every cell but the head)."""
 
     def __init__(self, cells: List[Cell], in_shape: Tuple[int, ...],
                  num_classes: int, name: str = "model"):
@@ -78,6 +80,7 @@ class CellModel(nn.Module):
         self.in_shape = tuple(in_shape)
         self.num_classes = num_classes
         self.name = name
+        self.spatial_until = 0
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every layer's init from ``generator``, in module order."""
@@ -85,14 +88,17 @@ class CellModel(nn.Module):
             if isinstance(m, Layer):
                 m.reset_parameters(generator)
 
-    def forward(self, x, ctx: ApplyCtx, remat=False):
-        """Run the cells.  ``remat`` True (or "cell") checkpoints each cell;
-        the finer JAX levels ("fine", "sqrt") are later work."""
+    def forward(self, x, ctx: ApplyCtx, remat=False, start: int = 0,
+                stop: Optional[int] = None):
+        """Run cells [start, stop).  ``remat`` True (or "cell") checkpoints
+        each cell; the finer JAX levels ("fine", "sqrt") are later work."""
         if remat not in (False, True, "cell"):
             raise NotImplementedError(
                 f"remat={remat!r}: only per-cell remat is ported (ROADMAP A4)"
             )
-        for i, cell in enumerate(self.cells):
+        stop = len(self.cells) if stop is None else stop
+        for i in range(start, stop):
+            cell = self.cells[i]
             with scope(f"cell{i:02d}"):
                 x = checkpointed_apply(cell, x, ctx) if remat else cell(x, ctx)
         return x

@@ -1,11 +1,10 @@
 """Configuration / flags (counterpart of ``mpi4dl_tpu/config.py``).
 
 The parser keeps the JAX package's flag vocabulary (itself the reference's,
-``src/torchgems/parser.py``).  This port runs the single-device engine only,
-so a flag that asks for an engine not ported yet raises NotImplementedError
-naming its ROADMAP item instead of being ignored.  Two defaults differ from
-the JAX package's for that reason: ``--num-spatial-parts`` is 1 (no spatial
-parallelism) and ``--model`` is amoebanet (ResNet is the next slice).
+``src/torchgems/parser.py``) and its defaults.  The port runs the
+single-device engine and single-level spatial parallelism (D1 and D2); a
+flag that asks for an engine not ported yet raises NotImplementedError
+naming its ROADMAP item instead of being ignored.
 """
 
 from __future__ import annotations
@@ -20,12 +19,12 @@ import torch
 @dataclasses.dataclass
 class ParallelConfig:
     # --- model / problem (reference parser.py) ---
-    model: str = "amoebanet"  # amoebanet | resnet (next slice)
+    model: str = "resnet"  # resnet | amoebanet
     batch_size: int = 32
     parts: int = 1  # micro-batches per step (GPipe "parts")
     split_size: int = 1  # pipeline stages (LP splits)
     schedule: str = "gpipe"  # pipeline schedule: gpipe | 1f1b
-    num_spatial_parts: Tuple[int, ...] = (1,)
+    num_spatial_parts: Tuple[int, ...] = (4,)
     spatial_size: int = 1  # how many leading splits are spatial
     times: int = 1  # GEMS replication factor
     image_size: int = 32
@@ -76,15 +75,13 @@ class ParallelConfig:
     def validate(self) -> None:
         if self.precision not in ("fp_32", "bf_16", "bf_16_all"):
             raise ValueError(f"unknown precision {self.precision!r}")
-        assert self.slice_method in ("square", "vertical", "horizontal")
+        if self.slice_method not in ("square", "vertical", "horizontal"):
+            raise ValueError(f"unknown slice method {self.slice_method!r}")
         assert self.batch_size % self.parts == 0, "batch must divide into parts"
         unported = [
-            (self.spatial_size > 0 and self.spatial_part_size > 1
-             or self.spatial_until is not None,
-             "spatial parallelism (--num-spatial-parts > 1, --spatial-until)",
-             "A5"),
-            (self.halo_d2 or self.fused_layers != 0,
-             "D2 fused halo runs (--halo-d2, --fused-layers)", "A6"),
+            (self.spatial_size > 0 and len(set(self.num_spatial_parts)) > 1,
+             "multi-level spatial parallelism (a --num-spatial-parts list)",
+             "A11"),
             (self.split_size > 1 or self.balance is not None,
              "layer/pipeline parallelism (--split-size > 1, --balance)", "A7"),
             (self.data_parallel > 1 or self.local_dp_lp > 1,
@@ -116,12 +113,12 @@ def resolve_pallas_conv(setting: Optional[bool]) -> bool:
 def get_parser() -> argparse.ArgumentParser:
     """Argparse with the JAX package's flag names."""
     p = argparse.ArgumentParser(description="mpi4dl_tpu_torch")
-    p.add_argument("--model", type=str, default="amoebanet")
+    p.add_argument("--model", type=str, default="resnet")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--parts", type=int, default=1)
     p.add_argument("--split-size", type=int, default=1)
     p.add_argument("--schedule", choices=["gpipe", "1f1b"], default="gpipe")
-    p.add_argument("--num-spatial-parts", type=str, default="1")
+    p.add_argument("--num-spatial-parts", type=str, default="4")
     p.add_argument("--spatial-size", type=int, default=1)
     p.add_argument("--times", type=int, default=1)
     p.add_argument("--image-size", type=int, default=32)
@@ -179,7 +176,7 @@ def config_from_args(args: argparse.Namespace) -> ParallelConfig:
         parts=args.parts,
         split_size=args.split_size,
         schedule=args.schedule,
-        num_spatial_parts=_int_tuple(args.num_spatial_parts) or (1,),
+        num_spatial_parts=_int_tuple(args.num_spatial_parts) or (4,),
         spatial_size=args.spatial_size,
         times=args.times,
         image_size=args.image_size,

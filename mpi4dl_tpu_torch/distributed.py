@@ -6,8 +6,8 @@ made by ``new_group``); ``None`` means one device and no communication.
 The JAX package's ``lax.ppermute`` ring becomes :func:`ring_hop`, a
 differentiable send to the next rank whose backward sends the gradients
 back, as the transpose of ``ppermute`` does; ``psum`` of the gradients
-becomes :func:`all_reduce_sum_`.  The 2-D halo exchange waits for ROADMAP
-A5.
+becomes :func:`all_reduce_sum_`.  The spatial engine's tile communication
+is ``parallel/tiles.py``.
 """
 
 from __future__ import annotations

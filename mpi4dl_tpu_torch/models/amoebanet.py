@@ -5,8 +5,9 @@ A Stem, two reduction stem cells, three groups of normal cells separated by
 reduction cells, and a Classify head; each NAS cell carries ``(x, skip)``.
 The reference's ``max_pool_3x3`` builds an AvgPool; here, as in the JAX
 package, it is a real max pool.  The ``MPI4DL_LANE_PAD`` lane padding is a
-TPU layout lever and is left out; the cell-level D2 plan waits for the SP
-engine (ROADMAP A6).
+TPU layout lever and is left out.  Under D2 a normal cell exchanges each
+of its two input states once, by the margin its consumers need
+(:meth:`AmoebaCell.d2_plan`), and runs its ops margin-consuming.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from mpi4dl_tpu_torch.layer_ctx import ApplyCtx
 from mpi4dl_tpu_torch.layers import (
     BatchNorm, Conv2d, Dense, GlobalAvgPool, Identity, Layer, Pool2d, ReLU,
 )
+from mpi4dl_tpu_torch.ops.d2 import accumulated_halo, apply_layers_premargin
+from mpi4dl_tpu_torch.ops.halo import HaloSpec, halo_exchange_2d
 
 
 def _relu_conv_bn(in_c: int, out_c: int, kernel=1, stride=1,
@@ -147,6 +150,7 @@ class AmoebaCell(Cell):
                  name: str = "amoeba_cell"):
         super().__init__(name)
         c = channels
+        self.reduction = reduction
         self.reduce1 = LayerCell(_relu_conv_bn(channels_prev, c), name="reduce1")
         if reduction_prev:
             self.reduce2: Cell = FactorizedReduce(channels_prev_prev, c)
@@ -163,6 +167,12 @@ class AmoebaCell(Cell):
         )
 
     def forward(self, x, ctx: ApplyCtx):
+        sp = ctx.spatial
+        if (sp is not None and sp.active and sp.d2_mode
+                and not sp.halo_pre_exchanged and not self.reduction):
+            plan = self.d2_plan()
+            if plan is not None:
+                return self._apply_d2(x, ctx, plan)
         s1, s2 = x if isinstance(x, tuple) else (x, x)
         states = [self.reduce1(s1, ctx), self.reduce2(s2, ctx)]
         for j in range(0, len(self.ops), 2):
@@ -170,6 +180,63 @@ class AmoebaCell(Cell):
             y2 = self.ops[j + 1](states[self.indices[j + 1]], ctx)
             states.append(y1 + y2)
         return torch.cat([states[i] for i in self.concat], dim=-1), s1
+
+    def d2_plan(self):
+        """Static margin plan of cell-level D2 (``amoebanet.py:348-383``):
+        ``need[s]`` = max over the ops reading state s of (the op's
+        accumulated halo + need[the op's output state]), found by a
+        backward pass over the genotype; intermediate states take leftover
+        margin by cropping.  The normal cell gives need[s1] = 3 and
+        need[s2] = 2, the reference Cell_D2's constants.  None when an op
+        cannot take part."""
+        margins = []
+        for op in self.ops:
+            acc = accumulated_halo(op.layers) if isinstance(op, LayerCell) else None
+            if acc is None:
+                return None
+            margins.append(acc)
+        need = [(0, 0)] * (2 + len(self.ops) // 2)
+        for j in reversed(range(0, len(self.ops), 2)):
+            out_state = 2 + j // 2
+            for jj in (j, j + 1):
+                s_in = self.indices[jj]
+                ch, cw = margins[jj]
+                need[s_in] = (max(need[s_in][0], ch + need[out_state][0]),
+                              max(need[s_in][1], cw + need[out_state][1]))
+        return {"need": need, "margins": margins}
+
+    def _apply_d2(self, x, ctx: ApplyCtx, plan):
+        """One halo exchange per input state; the ops run margin-consuming;
+        intermediate states realign by cropping leftover margin."""
+        sp = ctx.spatial
+        need = plan["need"]
+
+        def dims(nh, nw):
+            return (nh if sp.sharded_h else 0, nw if sp.sharded_w else 0)
+
+        def crop(t, ch, cw):
+            if ch == 0 and cw == 0:
+                return t
+            return t[:, ch:t.shape[1] - ch, cw:t.shape[2] - cw, :]
+
+        s1_in, s2_in = x if isinstance(x, tuple) else (x, x)
+        states = []
+        for t, (nh, nw) in ((self.reduce1(s1_in, ctx), need[0]),
+                            (self.reduce2(s2_in, ctx), need[1])):
+            mh, mw = dims(nh, nw)
+            t = halo_exchange_2d(t, HaloSpec.symmetric(mh), HaloSpec.symmetric(mw),
+                                 sp.axis_h, sp.axis_w, sp.grid_h, sp.grid_w, sp.tiles)
+            states.append((t, mh, mw))
+        for j in range(0, len(self.ops), 2):
+            tnh, tnw = dims(*need[2 + j // 2])
+            outs = []
+            for jj in (j, j + 1):
+                t, mh, mw = states[self.indices[jj]]
+                y, mho, mwo = apply_layers_premargin(self.ops[jj].layers, t, ctx, mh, mw)
+                outs.append(crop(y, mho - tnh, mwo - tnw))
+            states.append((outs[0] + outs[1], tnh, tnw))
+        out = torch.cat([crop(*states[i]) for i in self.concat], dim=-1)
+        return out, s1_in
 
 
 class Classify(Cell):
@@ -226,7 +293,8 @@ def amoebanetd(in_shape: Tuple[int, int, int, int], num_classes: int = 10,
     model = CellModel(cells, in_shape, num_classes,
                       name=f"amoebanetd_l{num_layers}_f{num_filters}")
     model.to(device=dev, dtype=dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    model.reset_parameters(gen)
+    if dev.type != "meta":  # a meta model has shapes only
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model.reset_parameters(gen)
     return model

@@ -53,6 +53,7 @@ leaves dw to XLA.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -219,6 +220,52 @@ def halo_conv2d(x: torch.Tensor, w: torch.Tensor,
         return _launch(x, w, out_dtype, fuse_relu, stat_window)
     with torch.cuda.device(x.device):
         return _launch(x, w, out_dtype, fuse_relu, stat_window)
+
+
+class Dispatches:
+    """What :func:`count_dispatches` saw: ``counts`` by kernel name, and
+    ``calls``, one ``(name, phase, x shape, w shape, dtype, fuse_relu,
+    stat_window)`` per call (``phase`` "bwd" for a backward's dx, else
+    "fwd")."""
+
+    def __init__(self):
+        self.counts = {k: 0 for k in LAUNCHES}
+        self.calls = []
+        self.phase = "fwd"
+
+
+@contextlib.contextmanager
+def count_dispatches():
+    """Record the K1 (``halo_conv2d``) and K2 (``halo_conv2d_stats``) calls
+    made inside the ``with`` block, each run as its plain version: a dry
+    run that launches nothing.  On the meta device it gives, at full size
+    and without memory or compute, the launches a step makes on the card
+    and their shapes; CUDA tensors raise.  Yields a :class:`Dispatches`."""
+    global halo_conv2d, _dx
+    seen = Dispatches()
+    real, real_dx = halo_conv2d, _dx
+
+    def marking_dx(*a, **k):
+        seen.phase = "bwd"
+        try:
+            return real_dx(*a, **k)
+        finally:
+            seen.phase = "fwd"
+
+    def counting(x, w, out_dtype=None, fuse_relu=False, stat_window=None):
+        if x.is_cuda:
+            raise RuntimeError("count_dispatches is a dry run: CPU or meta tensors only")
+        name = "halo_conv2d" if stat_window is None else "halo_conv2d_stats"
+        seen.counts[name] += 1
+        seen.calls.append((name, seen.phase, tuple(x.shape), tuple(w.shape), x.dtype, bool(fuse_relu),
+                           None if stat_window is None else tuple(stat_window)))
+        return halo_conv2d_plain(x, w, out_dtype, fuse_relu, stat_window)
+
+    halo_conv2d, _dx = counting, marking_dx
+    try:
+        yield seen
+    finally:
+        halo_conv2d, _dx = real, real_dx
 
 
 # ---------------------------------------------------------------------------

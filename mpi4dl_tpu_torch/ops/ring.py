@@ -18,8 +18,8 @@ computes, as in the JAX package:
 
 ``use_flash=None`` picks the flash path for CUDA tensors and the einsum
 path for CPU tensors (``_resolve_flash`` :82-89 picks by backend).
-``seq_ghost_exchange`` and ``ghost_conv1d`` (``ring.py:41-79``) wait for
-ROADMAP A5 with the halo exchange.
+``seq_ghost_exchange`` and ``ghost_conv1d`` (``ring.py:41-79``) are not
+ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 
 :func:`make_train_step` returns ``step(state, x, labels) -> (state,
 metrics)``, as its JAX counterpart does; PyTorch runs eagerly, so the
-step updates the model's parameters and running statistics in place.  The
-SP, pipeline and GEMS steps are later slices (ROADMAP A5-A9).
+step updates the model's parameters and running statistics in place.
+:func:`make_spatial_train_step` is the spatial-parallel step (one level,
+``gather`` junction); the pipeline and GEMS steps are later slices
+(ROADMAP A7-A9).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from mpi4dl_tpu_torch.cells import CellModel
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
 from mpi4dl_tpu_torch.layers import BatchNorm
+from mpi4dl_tpu_torch.parallel.spatial import apply_spatial_model
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -116,6 +119,42 @@ def make_loss_fn(model: CellModel, ctx: ApplyCtx, remat=False):
     return loss_fn
 
 
+def _accumulating_step(optimizer: Optimizer, params, grads_for, parts: int,
+                       reduce_grads=None):
+    """``step(state, x, labels)``: gradients of ``grads_for(x, labels) ->
+    (loss, logits, stat_updates, grads)``, averaged over ``parts``
+    micro-batches with the running-statistics updates (``train.py:257-286``),
+    reduced by ``reduce_grads`` (in place), then the optimizer update and
+    the running statistics."""
+
+    def step(state: TrainState, x, labels):
+        if parts == 1:
+            loss, logits, stats, grads = grads_for(x, labels)
+            acc = accuracy(logits, labels)
+        else:
+            mb_x, mb_y = x.chunk(parts), labels.chunk(parts)
+            loss = acc = 0.0
+            grads, stats = None, None
+            for xx, yy in zip(mb_x, mb_y):
+                l, logits, st, g = grads_for(xx, yy)
+                loss, acc = loss + l, acc + accuracy(logits, yy)
+                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+                stats = st if stats is None else {
+                    k: (stats[k][0] + m, stats[k][1] + v) for k, (m, v) in st.items()
+                }
+            grads = [g / parts for g in grads]
+            stats = {k: (m / parts, v / parts) for k, (m, v) in stats.items()}
+            loss, acc = loss / parts, acc / parts
+        if reduce_grads is not None:
+            reduce_grads(grads)
+        state.opt_state = optimizer.update(params, grads, state.opt_state)
+        merge_stat_updates(stats)
+        state.step += 1
+        return state, {"loss": loss, "accuracy": acc}
+
+    return step
+
+
 def make_train_step(model: CellModel, optimizer: Optimizer, parts: int = 1,
                     compute_dtype=torch.float32, remat=False,
                     pallas_conv: bool = False):
@@ -137,32 +176,81 @@ def make_train_step(model: CellModel, optimizer: Optimizer, parts: int = 1,
     def grads_for(x, labels):
         loss, (logits, stats) = loss_fn(x.to(compute_dtype), labels)
         grads = torch.autograd.grad(loss, params)
-        return loss.detach(), logits.detach(), stats, grads
+        return loss.detach(), logits.detach(), stats, list(grads)
 
-    def step(state: TrainState, x, labels):
-        if parts == 1:
-            loss, logits, stats, grads = grads_for(x, labels)
-            acc = accuracy(logits, labels)
-        else:
-            mb_x, mb_y = x.chunk(parts), labels.chunk(parts)
-            loss = acc = 0.0
-            grads, stats = None, None
-            for xx, yy in zip(mb_x, mb_y):
-                l, logits, st, g = grads_for(xx, yy)
-                loss, acc = loss + l, acc + accuracy(logits, yy)
-                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-                stats = st if stats is None else {
-                    k: (stats[k][0] + m, stats[k][1] + v) for k, (m, v) in st.items()
-                }
-            grads = [g / parts for g in grads]
-            stats = {k: (m / parts, v / parts) for k, (m, v) in stats.items()}
-            loss, acc = loss / parts, acc / parts
-        state.opt_state = optimizer.update(params, grads, state.opt_state)
-        merge_stat_updates(stats)
-        state.step += 1
-        return state, {"loss": loss, "accuracy": acc}
+    return _accumulating_step(optimizer, params, grads_for, parts)
 
-    return step
+
+def _spatial_until(model: CellModel, spatial_until: Optional[int]) -> int:
+    su = spatial_until or model.spatial_until or (len(model.cells) - 1)
+    if not 1 <= su < len(model.cells):
+        raise ValueError(f"spatial_until {su} outside [1, {len(model.cells) - 1}]")
+    return su
+
+
+def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
+                            sp: SpatialCtx, parts: int = 1,
+                            compute_dtype=torch.float32,
+                            spatial_until: Optional[int] = None,
+                            junction: str = "gather", remat=False):
+    """Spatial-parallel training step (``train.py:335-488``, one level):
+    ``step(state, x, labels)`` takes the FULL batch of images, cuts this
+    process's tiles from it (``sp.tiles.scatter``), runs cells [0,
+    spatial_until) on the tiles, gathers, runs the tail on the full
+    activation, and updates the parameters.
+
+    Gradients: the tail runs on the same full activation on every tile's
+    rank, so its loss and its gradients are complete on each, and the
+    gather's backward hands each rank its own tile's cotangent (JAX
+    differentiates ``pmean(loss)``, whose 1/P the all_gather's summing
+    adjoint undoes).  The spatial region's gradients hold one tile's share
+    each and are summed over the ranks (``sp.tiles.reduce_grads``; nothing
+    to sum on the one-process grid); cross-tile BatchNorm's all-reduce
+    sums its cotangents likewise.  ``sp.use_pallas_conv`` routes the
+    region's stride-1 convs and K2 windows through the kernels."""
+    if sp is None or not sp.active or sp.tiles is None:
+        raise ValueError("make_spatial_train_step needs an active SpatialCtx with tiles")
+    su = _spatial_until(model, spatial_until)
+    ctx = ApplyCtx(train=True, spatial=sp)
+    params = [p for p in model.parameters() if p.requires_grad]
+    region_ids = {id(p) for cell in model.cells[:su] for p in cell.parameters()}
+    region = [i for i, p in enumerate(params) if id(p) in region_ids]
+
+    def grads_for(x, labels):
+        c = dataclasses.replace(ctx, bn_sink={})
+        logits = apply_spatial_model(model, sp.tiles.scatter(x.to(compute_dtype)), c,
+                                     su, junction, remat=remat)
+        if isinstance(logits, tuple):
+            logits = logits[0]
+        loss = cross_entropy(logits, labels)
+        grads = torch.autograd.grad(loss, params)
+        return loss.detach(), logits.detach(), c.bn_sink, list(grads)
+
+    def reduce_grads(grads):
+        sp.tiles.reduce_grads([grads[i] for i in region])
+
+    return _accumulating_step(optimizer, params, grads_for, parts, reduce_grads)
+
+
+def make_spatial_eval_step(model: CellModel, sp: SpatialCtx,
+                           compute_dtype=torch.float32,
+                           spatial_until: Optional[int] = None,
+                           junction: str = "gather"):
+    """Spatial-parallel inference step ``(x, labels) -> metrics`` (full
+    images in; BatchNorm uses the running statistics)."""
+    su = _spatial_until(model, spatial_until)
+    ctx = ApplyCtx(train=False, spatial=sp)
+
+    @torch.no_grad()
+    def estep(x, labels):
+        logits = apply_spatial_model(model, sp.tiles.scatter(x.to(compute_dtype)),
+                                     ctx, su, junction)
+        if isinstance(logits, tuple):
+            logits = logits[0]
+        return {"loss": cross_entropy(logits, labels),
+                "accuracy": accuracy(logits, labels), "logits": logits}
+
+    return estep
 
 
 def make_eval_step(model: CellModel, compute_dtype=torch.float32):

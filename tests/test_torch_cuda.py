@@ -241,6 +241,148 @@ def test_reduced_depth_step_launches_the_kernels(card):
     assert hc.LAUNCHES["halo_conv2d_stats"] == hc.LAUNCHES["halo_conv2d"] == 20
 
 
+# A fault of the single-device path: the AmoebaNet gradient on the card.
+
+
+def _pool_grads(dev, pool_fn, x, ct):
+    xx = x.detach().clone().to(dev).requires_grad_()
+    y = pool_fn(xx)
+    (y * ct.to(dev)).sum().backward()
+    return y.detach().cpu(), xx.grad.cpu()
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_library_avg_pool_backward_on_card(card, stride):
+    """``F.avg_pool2d`` over the layers' channels-last view (NHWC permuted
+    to NCHW), 3x3 padded windows, ``count_include_pad=False``: its forward
+    on the card agrees with the CPU; this records how far its backward
+    is from the CPU's (the reason ``layers.Pool2d`` sums its windows)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 32, 32, 8), generator=g)
+    ct = torch.randn((1, 32 // stride, 32 // stride, 8), generator=g)
+
+    def pool(t):
+        return F.avg_pool2d(t.permute(0, 3, 1, 2), 3, stride, 1,
+                            count_include_pad=False).permute(0, 2, 3, 1)
+
+    (y, gx), (ry, rgx) = (_pool_grads(d, pool, x, ct) for d in (card, "cpu"))
+    torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-6)
+    print(f"F.avg_pool2d stride {stride} backward, card vs CPU: max|Δ| "
+          f"{float((gx - rgx).abs().max()):.3g} of max|ref| {float(rgx.abs().max()):.3g}")
+
+
+@pytest.mark.parametrize("op,stride", [("avg", 1), ("avg", 2), ("max", 1), ("max", 2)])
+def test_pool_backward_on_card_matches_cpu(card, op, stride):
+    from mpi4dl_tpu_torch.layer_ctx import ApplyCtx
+    from mpi4dl_tpu_torch.layers import Pool2d
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 32, 32, 8), generator=g)
+    ct = torch.randn((2, 32 // stride, 32 // stride, 8), generator=g)
+    pool = Pool2d(op, 3, stride, 1, count_include_pad=False)
+    (y, gx), (ry, rgx) = (_pool_grads(d, lambda t: pool(t, ApplyCtx(train=True)), x, ct)
+                          for d in (card, "cpu"))
+    torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gx, rgx, rtol=1e-5, atol=1e-6)
+
+
+def test_amoebanet_gradient_on_card_matches_cpu(card):
+    """The single-device AmoebaNet-D gradient on the card, with and
+    without the fused kernels, within 1e-4 (norm-relative, fp32) of the
+    CPU's: the check that caught the library average pool's backward."""
+    from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
+    from mpi4dl_tpu_torch.models.amoebanet import amoebanetd
+    from mpi4dl_tpu_torch.train import cross_entropy
+
+    shape = (1, 128, 128, 3)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    y = torch.tensor([3])
+
+    def grads(dev, knob):
+        model = amoebanetd(shape, num_classes=10, num_layers=3, num_filters=32,
+                           device=dev, seed=0)
+        if dev != "cpu":
+            model.load_state_dict(ref_model.state_dict())
+        ctx = ApplyCtx(train=True, spatial=SpatialCtx(use_pallas_conv=True) if knob else None)
+        loss = cross_entropy(model(x.to(dev), ctx), y.to(dev))
+        return [t.cpu() for t in torch.autograd.grad(loss, list(model.parameters()))], model
+
+    ref, ref_model = grads("cpu", False)
+    norm = sum(float((t.double() ** 2).sum()) for t in ref) ** 0.5
+    for knob in (False, True):
+        got, _ = grads(card, knob)
+        diff = sum(float(((a - b).double() ** 2).sum()) for a, b in zip(got, ref)) ** 0.5
+        assert diff <= 1e-4 * norm, (knob, diff / norm)
+
+
+# The spatial-parallel slice: K1/K2 on tiles that carry their halo margins.
+
+
+@pytest.mark.parametrize("kh,kw,margin", [(1, 7, 3), (7, 1, 3), (3, 3, 2), (5, 5, 2)])
+def test_k2_excludes_the_margin_of_a_2x2_tile_batch(card, kh, kw, margin):
+    """K2 on four tiles (the one-process 2x2 grid folds them into the
+    batch) that still carry a margin of 2 or 3 pixels after the conv: the
+    statistics window leaves it out, as D2's premargin runs ask."""
+    n, h, w = 4, 40 + 2 * margin, 36 + 2 * margin
+    x, wk = _bf16_data(card, kh, kw, 104, 104, n, h, w, seed=3)
+    win = (margin, h - margin, margin, w - margin)
+    y, s, ss = hc.halo_conv2d(x, wk, fuse_relu=True, stat_window=win)
+    yr, sr, ssr = hc.halo_conv2d_plain(x, wk, fuse_relu=True, stat_window=win)
+    _check_bf16(y, yr)
+    _check_stats(s, ss, sr, ssr, yr, win)
+    full = hc.halo_conv2d_plain(x, wk, fuse_relu=True, stat_window=(0, h, 0, w))
+    assert float((full[1] - sr).abs().max()) > 0  # the margin was left out
+
+
+@pytest.mark.parametrize("cin", [3, 16, 32, 64])
+def test_k1_forward_at_resnet_widths(card, cin):
+    """K1's forward at ResNet's stage-1 widths on a tile batch with its
+    D2 margin: Cin 3 takes one-element copies, 16-64 the 16-byte ones."""
+    x, wk = _bf16_data(card, 3, 3, cin, 16, 4, 66, 70, seed=cin)
+    y = hc.halo_conv2d(x, wk)
+    _check_bf16(y, hc.halo_conv2d_plain(x, wk))
+    assert torch.equal(y, hc.halo_conv2d(x, wk))
+
+
+@pytest.mark.parametrize("arch,image,depth", [("amoebanet", 256, 3), ("resnet", 128, 11)])
+def test_sp_step_launches_what_the_dispatch_predicts(card, arch, image, depth):
+    """A reduced-depth SP D2 step on the one-process 2x2 grid launches
+    exactly the K1/K2 calls of its dry run on the meta device."""
+    import warnings
+
+    from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
+    from mpi4dl_tpu_torch.models import amoebanetd, get_resnet_v2
+    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_spatial_train_step
+
+    def parts(dev):
+        shape = (1, image, image, 3)
+        model = (amoebanetd(shape, num_classes=10, num_layers=depth, num_filters=64,
+                            device=dev) if arch == "amoebanet"
+                 else get_resnet_v2(shape, depth, 10, device=dev))
+        opt = Optimizer("sgd", lr=0.01)
+        sp = spatial_ctx_for("square", 4, tiles=TileGrid(2, 2), d2_mode=True,
+                             use_pallas_conv=True)
+        return (make_spatial_train_step(model, opt, sp, compute_dtype=torch.bfloat16),
+                TrainState.create(model, opt))
+
+    warnings.simplefilter("ignore")
+    meta = torch.device("meta")
+    step, state = parts(meta)
+    with hc.count_dispatches() as seen:
+        step(state, torch.zeros((1, image, image, 3), device=meta),
+             torch.zeros((1,), dtype=torch.long, device=meta))
+    step, state = parts(card)
+    hc.reset_launch_counts()
+    _, m = step(state, torch.randn((1, image, image, 3), device=card),
+                torch.zeros((1,), dtype=torch.long, device=card))
+    assert math.isfinite(float(m["loss"]))
+    assert dict(hc.LAUNCHES) == seen.counts
+    assert seen.counts["halo_conv2d"] > 0
+
+
 # ---------------------------------------------------------------------------
 # K3, the block-flash attention kernel.
 # ---------------------------------------------------------------------------

@@ -46,7 +46,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, mpi4dl_tpu_torch, mpi4dl_tpu_torch.__main__, "
             "mpi4dl_tpu_torch.params, mpi4dl_tpu_torch.distributed, "
             "mpi4dl_tpu_torch.ops.flash_attention, mpi4dl_tpu_torch.ops.ring, "
-            "mpi4dl_tpu_torch.models.seqblock, "
+            "mpi4dl_tpu_torch.models.seqblock, mpi4dl_tpu_torch.mesh, "
+            "mpi4dl_tpu_torch.benchmarks.common, "
             "mpi4dl_tpu_torch.benchmarks.communication.ring.benchmark_ring_attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mpi4dl_tpu')))")
@@ -62,7 +63,7 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         amoebanetd((1, 32, 32, 3), num_layers=3, num_filters=16)
     cfg = config_from_args(get_parser().parse_args(
-        ["--num-layers", "3", "--num-filters", "16"]))
+        ["--model", "amoebanet", "--num-layers", "3", "--num-filters", "16"]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
     from mpi4dl_tpu_torch.__main__ import main
@@ -99,11 +100,16 @@ def test_long_context_entry_points_raise_without_a_card(capsys):
 def test_main_runs_on_cpu_when_asked(capsys):
     from mpi4dl_tpu_torch.__main__ import main
 
-    main(["--image-size", "32", "--num-layers", "3", "--num-filters", "16",
-          "--batch-size", "2", "--pallas-conv", "--steps", "1", "--device", "cpu"])
+    main(["--model", "amoebanet", "--image-size", "32", "--num-layers", "3",
+          "--num-filters", "16", "--batch-size", "2", "--pallas-conv", "--steps", "1",
+          "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("step 0: loss")
     assert '"launches"' in out[-1]
+
+
+# Items ported since the flags were first refused: their flags now parse.
+PORTED = {"A5", "A6"}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -117,13 +123,59 @@ def test_main_runs_on_cpu_when_asked(capsys):
     (["--app", "1"], "A10"),
     (["--stripe-bwd"], "A11"),
     (["--quant", "int8"], "A13"),
+    (["--num-spatial-parts", "4,2"], "A11"),
+    (["--local-DP", "2"], "A7"),
 ])
 def test_unported_flags_raise(flags, item):
+    """A flag of an engine not ported yet raises and names its ROADMAP
+    item; the spatial flags (A5, A6) parse since the SP engine is ported."""
+    if item in PORTED:
+        cfg = config_from_args(get_parser().parse_args(flags))
+        assert cfg.num_spatial_parts == (4,)
+        assert cfg.spatial_until in (None, 3) and cfg.halo_d2 == ("--halo-d2" in flags)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         config_from_args(get_parser().parse_args(flags))
 
 
 def test_resnet_is_refused_by_name():
-    cfg = config_from_args(get_parser().parse_args(["--model", "resnet"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    """ResNet was refused by name before it was ported; ``--model resnet``
+    (the JAX package's default) now builds ResNet-(9n+2) v2, and an
+    unknown model name is refused."""
+    cfg = config_from_args(get_parser().parse_args(
+        ["--model", "resnet", "--num-layers", "1"]))
+    assert build_model(cfg, device="cpu").name == "resnet11_v2"
+    cfg.model = "vgg"
+    with pytest.raises(ValueError, match="unknown model 'vgg'"):
         build_model(cfg, device="cpu")
+
+
+def test_sp_runner_needs_its_ranks():
+    """The SP runners never fall back to the one-process grid: without the
+    ranks of the tile grid they raise."""
+    from mpi4dl_tpu_torch.benchmarks.common import run
+
+    with pytest.raises(RuntimeError, match="torchrun"):
+        run("sp", "resnet", ["--device", "cpu", "--num-layers", "1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        run("sp", "resnet", ["--device", "cpu", "--telemetry-dir", "t"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        run("sp", "resnet", ["--device", "cpu", "--local-DP", "2"])
+
+
+def test_sp_runner_trains_on_four_gloo_ranks():
+    """``benchmark_amoebanet_sp`` under torchrun: four gloo ranks, one tile
+    each, D2 with the kernel knob (the plain versions on the CPU)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m",
+           "mpi4dl_tpu_torch.benchmarks.spatial_parallelism.benchmark_amoebanet_sp",
+           "--device", "cpu", "--image-size", "64", "--num-layers", "3",
+           "--num-filters", "16", "--batch-size", "2", "--steps-per-epoch", "2",
+           "--halo-d2", "--pallas-conv", "--spatial-until", "4"]
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["ranks"] == 4 and summary["spatial_until"] == 4
+    assert len(summary["losses"]) == 2 and all(v > 0 for v in summary["losses"])

@@ -37,9 +37,11 @@ CP_LR = 0.05
 CP_STEPS = 3
 
 
-def launch_gloo_ranks(job: str, workdir: Path, world: int = WORLD) -> None:
-    """Run ``job`` on ``world`` gloo ranks (processes); fail on a non-zero
-    exit or on ranks still running after ``RANK_DEADLINE_S``."""
+def launch_gloo_ranks(job: str, workdir: Path, world: int = WORLD,
+                      script: str = __file__) -> None:
+    """Run ``job`` on ``world`` gloo ranks (processes running ``script``,
+    this file by default); fail on a non-zero exit or on ranks still
+    running after ``RANK_DEADLINE_S``."""
     path = os.pathsep.join(p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)
     env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1")
     procs, logs = [], []
@@ -47,7 +49,7 @@ def launch_gloo_ranks(job: str, workdir: Path, world: int = WORLD) -> None:
         log = open(workdir / f"rank{rank}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, job, str(rank), str(world), str(workdir)],
+            [sys.executable, script, job, str(rank), str(world), str(workdir)],
             env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + RANK_DEADLINE_S
     try:
