@@ -9,7 +9,8 @@ builds what the JAX package's ``bench._build_step`` builds (SGD, lr from
 (loss, img/s) and a last JSON line with the kernels' launch counts.  It
 trains on one device: the spatial flags are ignored, as the JAX package's
 ``lp`` family ignores them; the spatial-parallel runners are
-``mpi4dl_tpu_torch/benchmarks/spatial_parallelism/``.
+``mpi4dl_tpu_torch/benchmarks/spatial_parallelism/``, the pipeline and
+data-parallel ones ``mpi4dl_tpu_torch/benchmarks/layer_parallelism/``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ def main(argv=None) -> None:
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     cfg = config_from_args(args)
+    if cfg.split_size > 1 or cfg.data_parallel > 1:
+        raise ValueError("--split-size and --data-parallel need ranks: run "
+                         "mpi4dl_tpu_torch.benchmarks.layer_parallelism under torchrun")
     dev = resolve_device(args.device)
     model = build_model(cfg, device=dev)
     opt = Optimizer(cfg.optimizer, lr=cfg.lr, momentum=cfg.momentum)

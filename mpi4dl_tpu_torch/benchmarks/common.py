@@ -1,17 +1,28 @@
-"""The spatial-parallel runners' shared flow (counterpart of the ``sp``
-family of ``benchmarks/common.py`` with ``--split-size`` 1).
+"""The runners' shared flow (counterpart of the ``lp`` and ``sp`` families
+of ``benchmarks/common.py``).
 
 Parse the JAX package's flags, join the ``torchrun`` process group (gloo
-with ``--device cpu``, else NCCL with one card per rank), build the tile
-grid over the ranks (one tile each), the model (random weights from
-``--seed``, the same on every rank) and ``make_spatial_train_step``, then
-train on a synthetic batch made from ``--seed`` and print one line per
-step and the ``StepMeter`` summary (the first step is the warm-up).
+with ``--device cpu``, else NCCL with one card per rank), build the mesh
+over the ranks (``mesh.build_process_mesh``: rank layout row-major over
+``(data, stage, sph, spw)``), the model (random weights from ``--seed``,
+the same on every rank) and the family's step, then train on a synthetic
+global batch made from ``--seed`` (``--batch-size`` images per data
+replica, as in the JAX runner) and print one line per step and the
+``StepMeter`` summary (the first step is the warm-up).
 
-Run in one process with a grid of more than one tile, it raises: the
-one-process tile grid is reached only by calling the engine directly.
-Telemetry, resilience and checkpoints are not ported (``--telemetry-dir``:
-ROADMAP A15; ``--watchdog-secs``: A14; ``--checkpoint-dir``: A10).
+- ``lp``: ``--split-size 1`` trains on one device, or DP with
+  ``--data-parallel``; more stages run ``make_pipeline_train_step`` with
+  one stage per rank (``--schedule gpipe|1f1b``, ``--parts``,
+  ``--balance``), DP x PP with ``--data-parallel``.
+- ``sp``: one tile per rank, ``--data-parallel`` replicas of the grid,
+  ``--local-DP`` the ``batch_split`` junction's degree.  SP x PP
+  (``--split-size`` > 1) is ROADMAP A9.
+
+Run in one process with more than one rank in the mesh, it raises: the
+one-process tile grid and stage chain are reached only by calling the
+engines directly.  Telemetry, resilience and checkpoints are not ported
+(``--telemetry-dir``: ROADMAP A15; ``--watchdog-secs``: A14;
+``--checkpoint-dir``: A10).
 """
 
 from __future__ import annotations
@@ -25,11 +36,13 @@ import torch
 from mpi4dl_tpu_torch.config import config_from_args, get_parser, resolve_pallas_conv
 from mpi4dl_tpu_torch.device import resolve_device
 from mpi4dl_tpu_torch.layer_ctx import spatial_levels_for
-from mpi4dl_tpu_torch.mesh import MeshSpec, build_mesh, initialize_distributed
+from mpi4dl_tpu_torch.mesh import MeshSpec, build_process_mesh, initialize_distributed
 from mpi4dl_tpu_torch.models import build_model
 from mpi4dl_tpu_torch.ops import halo_conv
 from mpi4dl_tpu_torch.parallel.spatial import cell_output_shapes, choose_spatial_until
-from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_spatial_train_step
+from mpi4dl_tpu_torch.train import (
+    Optimizer, TrainState, make_spatial_train_step, make_train_step,
+)
 from mpi4dl_tpu_torch.utils.misc import StepMeter
 
 
@@ -61,6 +74,53 @@ def _unported_flags(args):
                                   "ported to PyTorch yet (ROADMAP A14)")
 
 
+def _build(cfg, family: str, dev, mesh, say):
+    """(step, state, notes) of the family at ``cfg`` on this rank."""
+    from mpi4dl_tpu_torch.parallel.partition import StagePartition
+    from mpi4dl_tpu_torch.parallel.pipeline import (
+        init_pipeline_state, make_pipeline_train_step,
+    )
+    from mpi4dl_tpu_torch.parallel.stages import ProcessGroupStages
+
+    pallas = resolve_pallas_conv(cfg.pallas_conv)
+    opt = Optimizer(cfg.optimizer, lr=cfg.lr, momentum=cfg.momentum)
+    data = mesh.data if mesh is not None else None
+    mdl = build_model(cfg, device=dev)
+    if family == "lp":
+        if cfg.split_size <= 1:
+            step = make_train_step(mdl, opt, parts=cfg.parts,
+                                   compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+                                   pallas_conv=pallas, with_data_axis=data)
+            return step, TrainState.create(mdl, opt), {}
+        part = StagePartition.build(
+            mdl, cfg.split_size,
+            (cfg.batch_size // cfg.parts, cfg.image_size, cfg.image_size, 3),
+            balance=cfg.balance)
+        stages = ProcessGroupStages(cfg.split_size, mesh.stage_group)
+        part.release_others(stages.local_stages)
+        step = make_pipeline_train_step(
+            part, opt, stages, cfg.parts, compute_dtype=cfg.compute_dtype,
+            remat=cfg.remat, with_data_axis=data, schedule=cfg.schedule,
+            pallas_conv=pallas)
+        return step, init_pipeline_state(part, opt, stages), {
+            "stage": stages.stage, "ranges": part.ranges, "schedule": cfg.schedule}
+    su = resolve_spatial_until(cfg, len(mdl.cells), mdl.in_shape, say)
+    mdl.spatial_until = su
+    (sp,) = spatial_levels_for(
+        cfg.slice_method, cfg.num_spatial_parts[:1], tiles=mesh.tiles,
+        bn_cross_tile=cfg.bn_cross_tile, d2_mode=cfg.halo_d2,
+        d2_max_fused=cfg.fused_layers if cfg.fused_layers > 0 else None,
+        use_pallas_conv=pallas,
+    )
+    junction = "batch_split" if cfg.local_dp_lp > 1 else "gather"
+    step = make_spatial_train_step(
+        mdl, opt, sp, parts=cfg.parts, compute_dtype=cfg.compute_dtype,
+        spatial_until=su, remat=cfg.remat, junction=junction,
+        local_dp=cfg.local_dp_lp if junction == "batch_split" else None,
+        with_data_axis=data)
+    return step, TrainState.create(mdl, opt), {"spatial_until": su, "junction": junction}
+
+
 def run(family: str, model: str, argv=None) -> dict:
     """Parse flags, train, print; returns the summary dict (rank 0 prints)."""
     p = get_parser()
@@ -76,48 +136,44 @@ def run(family: str, model: str, argv=None) -> dict:
     args = p.parse_args(argv)
     cfg = config_from_args(args)
     _unported_flags(args)
-    if family != "sp":
+    if family not in ("lp", "sp"):
         raise NotImplementedError(f"the {family!r} family is not ported to "
-                                  "PyTorch yet (ROADMAP A7-A9)")
-    spec = MeshSpec.from_config(cfg)
-    if spec.size < 2:
-        raise ValueError("the sp runner needs --num-spatial-parts > 1 "
-                         "(single device: python -m mpi4dl_tpu_torch)")
+                                  "PyTorch yet (ROADMAP A8-A9)")
+    if family == "sp" and cfg.split_size > 1:
+        raise NotImplementedError("SP x PP (--split-size > 1 in the sp family) is "
+                                  "not ported to PyTorch yet (ROADMAP A9)")
+    if family == "lp":
+        spec = MeshSpec(data=cfg.data_parallel, stage=max(cfg.split_size, 1))
+    else:
+        spec = MeshSpec.from_config(cfg)
+        if spec.sph * spec.spw < 2:
+            raise ValueError("the sp runner needs --num-spatial-parts > 1 "
+                             "(single device: python -m mpi4dl_tpu_torch)")
     dev = resolve_device(args.device)
-    rank = initialize_distributed("gloo" if dev.type == "cpu" else "nccl")
+    mesh, rank = None, 0
+    if spec.size > 1:
+        rank = initialize_distributed("gloo" if dev.type == "cpu" else "nccl")
+        mesh = build_process_mesh(spec)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
-    tiles = build_mesh(spec)
     say = print if rank == 0 else (lambda *a, **k: None)
     say(f"ranks: {spec.size} x {dev.type} "
         f"({torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}); "
-        f"tiles {spec.sph}x{spec.spw}", flush=True)
-
-    mdl = build_model(cfg, device=dev)
-    su = resolve_spatial_until(cfg, len(mdl.cells), mdl.in_shape, say)
-    mdl.spatial_until = su
-    (sp,) = spatial_levels_for(
-        cfg.slice_method, cfg.num_spatial_parts[:1], tiles=tiles,
-        bn_cross_tile=cfg.bn_cross_tile, d2_mode=cfg.halo_d2,
-        d2_max_fused=cfg.fused_layers if cfg.fused_layers > 0 else None,
-        use_pallas_conv=resolve_pallas_conv(cfg.pallas_conv),
-    )
-    opt = Optimizer(cfg.optimizer, lr=cfg.lr, momentum=cfg.momentum)
-    step = make_spatial_train_step(mdl, opt, sp, parts=cfg.parts,
-                                   compute_dtype=cfg.compute_dtype,
-                                   spatial_until=su, remat=cfg.remat)
-    state = TrainState.create(mdl, opt)
+        f"mesh data {spec.data} stage {spec.stage} tiles {spec.sph}x{spec.spw}",
+        flush=True)
+    step, state, notes = _build(cfg, family, dev, mesh, say)
+    batch = cfg.batch_size * spec.data
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed + 1)
-    x = torch.randn((cfg.batch_size, cfg.image_size, cfg.image_size, 3),
+    x = torch.randn((batch, cfg.image_size, cfg.image_size, 3),
                     generator=gen, device=dev)
-    y = torch.randint(0, cfg.num_classes, (cfg.batch_size,), generator=gen, device=dev)
+    y = torch.randint(0, cfg.num_classes, (batch,), generator=gen, device=dev)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    meter = StepMeter(cfg.batch_size, warmup_steps=1)
+    meter = StepMeter(batch, warmup_steps=1)
     halo_conv.reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -129,7 +185,7 @@ def run(family: str, model: str, argv=None) -> dict:
         losses.append(float(m["loss"]))  # synchronises
         ms = (time.perf_counter() - t0) * 1e3
         meter.add(ms)
-        say(f"step {i}: loss {losses[-1]:.6f}  {cfg.batch_size / ms * 1e3:.3f} "
+        say(f"step {i}: loss {losses[-1]:.6f}  {batch / ms * 1e3:.3f} "
             f"img/s ({ms:.1f} ms)", flush=True)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     if peak is not None:
@@ -139,8 +195,7 @@ def run(family: str, model: str, argv=None) -> dict:
     say(meter.summary(), flush=True)
     out = {"images_per_sec": meter.images_per_sec(), "losses": losses,
            "stats": meter.stats(), "peak_bytes": peak,
-           "launches": dict(halo_conv.LAUNCHES), "ranks": spec.size,
-           "spatial_until": su}
+           "launches": dict(halo_conv.LAUNCHES), "ranks": spec.size, **notes}
     say(json.dumps(out), flush=True)
     return out
 

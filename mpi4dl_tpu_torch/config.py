@@ -2,9 +2,11 @@
 
 The parser keeps the JAX package's flag vocabulary (itself the reference's,
 ``src/torchgems/parser.py``) and its defaults.  The port runs the
-single-device engine and single-level spatial parallelism (D1 and D2); a
-flag that asks for an engine not ported yet raises NotImplementedError
-naming its ROADMAP item instead of being ignored.
+single-device engine, data parallelism, single-level spatial parallelism
+(D1 and D2, the ``gather`` and ``batch_split`` junctions) and the LP/PP
+pipelines (GPipe, 1F1B); a flag that asks for an engine not ported yet
+raises NotImplementedError naming its ROADMAP item instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -78,14 +80,15 @@ class ParallelConfig:
         if self.slice_method not in ("square", "vertical", "horizontal"):
             raise ValueError(f"unknown slice method {self.slice_method!r}")
         assert self.batch_size % self.parts == 0, "batch must divide into parts"
+        if self.schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.balance is not None and (len(self.balance) != self.split_size):
+            raise ValueError(f"--balance {self.balance} needs {self.split_size} "
+                             "entries (--split-size)")
         unported = [
             (self.spatial_size > 0 and len(set(self.num_spatial_parts)) > 1,
              "multi-level spatial parallelism (a --num-spatial-parts list)",
              "A11"),
-            (self.split_size > 1 or self.balance is not None,
-             "layer/pipeline parallelism (--split-size > 1, --balance)", "A7"),
-            (self.data_parallel > 1 or self.local_dp_lp > 1,
-             "data parallelism (--data-parallel, --local-DP)", "A7"),
             (self.enable_gems or self.times > 1
              or self.enable_master_comm_opt,
              "GEMS (--enable-gems, --times)", "A8"),

@@ -96,3 +96,26 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor], group: Optional[object]) ->
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
+
+
+def all_reduce_scaled_(tensors: Sequence[torch.Tensor], scales: Sequence[float],
+                       group: Optional[object]) -> None:
+    """``t ← scale · Σ_group t`` for each tensor, in place, in one fp32
+    all-reduce over one flat buffer whatever the tensors' dtypes (no
+    collective for ``None``, only the scales)."""
+    if not tensors:
+        return
+    if group is None:
+        with torch.no_grad():
+            for t, s in zip(tensors, scales):
+                if s != 1.0:
+                    t.mul_(s)
+        return
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    offset = 0
+    with torch.no_grad():
+        for t, s in zip(tensors, scales):
+            chunk = flat[offset:offset + t.numel()].view(t.shape)
+            t.copy_(chunk * s if s != 1.0 else chunk)
+            offset += t.numel()

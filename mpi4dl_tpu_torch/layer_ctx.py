@@ -86,11 +86,20 @@ class ApplyCtx:
                  the same value again instead of applying the update twice.
                  The step writes the sink into the buffers after the
                  optimizer update.
+    ``bn_shards``: the batch is this many equal row blocks, each the batch
+                 shard of another device (the tail after a ``batch_split``
+                 junction on the one-process grid).  BatchNorm normalises
+                 each with its own statistics and its running statistics
+                 take their mean — the folded form of the JAX package's
+                 ``bn_stat_axes`` (``layer_ctx.py:111-115``).  Across ranks
+                 (the data axis, one tile per rank) the steps average the
+                 running statistics themselves.
     """
 
     train: bool = True
     spatial: Optional[SpatialCtx] = None
     bn_sink: Optional[dict] = None
+    bn_shards: int = 1
 
     def with_spatial(self, spatial: Optional[SpatialCtx]) -> "ApplyCtx":
         return dataclasses.replace(self, spatial=spatial)

@@ -193,9 +193,13 @@ class _BNStats(torch.autograd.Function):
         return ct_s.to(x.dtype) + (2.0 * x.float() * ct_ss).to(x.dtype), None
 
 
-def per_tile_view(x: torch.Tensor, sp):
+def per_tile_view(x: torch.Tensor, sp, shards: int = 1):
     """``x`` as ``[T, N, ...]`` when it holds every tile of the grid folded
-    into its batch and the statistics are per tile; else None."""
+    into its batch and the statistics are per tile, or as ``[shards, N /
+    shards, ...]`` when its batch holds ``shards`` devices' batch shards
+    (``ApplyCtx.bn_shards``); else None."""
+    if shards > 1:
+        return x.reshape(shards, x.shape[0] // shards, *x.shape[1:])
     if sp is None or not sp.active or sp.bn_cross_tile or not sp.tiles.folded:
         return None
     return sp.tiles.per_tile(x)
@@ -262,7 +266,7 @@ class BatchNorm(Layer):
             mh = sp.pre_margin_h if sp.sharded_h else 0
             mw = sp.pre_margin_w if sp.sharded_w else 0
             stat_x = x[:, mh:x.shape[1] - mh, mw:x.shape[2] - mw, :]
-        per_tile = per_tile_view(stat_x, sp)
+        per_tile = per_tile_view(stat_x, sp, ctx.bn_shards)
         if per_tile is not None:
             s, ss = _BNStats.apply(per_tile, 1)
             cnt = float(per_tile[0].numel() // x.shape[-1])
@@ -290,7 +294,10 @@ class BatchNorm(Layer):
     def _deposit_running(self, mean, var, cnt: float, ctx: ApplyCtx) -> None:
         mean, var = mean.detach(), var.detach()
         sp = _tiled(ctx)
-        if sp is not None and not sp.bn_cross_tile:
+        if ctx.bn_shards > 1:
+            # Per-shard statistics: the running buffers take their mean.
+            mean, var = mean.mean(dim=0), var.mean(dim=0)
+        elif sp is not None and not sp.bn_cross_tile:
             # Per-tile statistics vary over the tiles; the running buffers
             # take their mean (layers.py:443-461).
             mean, var = sp.tiles.tile_mean(mean), sp.tiles.tile_mean(var)

@@ -2,16 +2,20 @@
 (counterpart of ``mpi4dl_tpu/parallel/spatial.py``, one level).
 
 :func:`apply_spatial_model` runs a CellModel's leading cells on tiles
-(halo-exchanging convs and pools, cross-tile BatchNorm), gathers the tiles
-into the full activation (the ``gather`` junction), and runs the remaining
-cells on it.  With one tile per rank the tail runs replicated on every
-rank; on the one-process grid it runs once.  Left out (ROADMAP): multi-level
-SP and ``respatial`` (A11), the ``batch_split`` junction and
-``--local-DP`` (A7).
+(halo-exchanging convs and pools, cross-tile BatchNorm), crosses the
+junction and runs the remaining cells.  The ``gather`` junction assembles
+the full activation: with one tile per rank the tail runs replicated on
+every rank, on the one-process grid once.  The ``batch_split`` junction
+(``--local-DP``, degree ``local_dp``) hands each tile device a batch shard
+of the full activation instead, one all_to_all when every device takes its
+own shard; on the one-process grid the tail runs the whole batch with
+per-shard BatchNorm statistics (``ApplyCtx.bn_shards``).  Left out
+(ROADMAP A11): multi-level SP and ``respatial``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
@@ -34,15 +38,63 @@ def tile_device_count(sp: SpatialCtx) -> int:
     return nh * nw
 
 
-def apply_junction(x, sp_last: SpatialCtx, junction: str = "gather"):
-    """The SP→LP junction; ``gather`` only (``batch_split`` is ROADMAP A7)."""
+def junction_degree(sp: SpatialCtx, local_dp: Optional[int]) -> int:
+    """The ``batch_split`` degree: ``local_dp``, else the tile count; it
+    must divide the tile devices (``spatial.py:106-120``)."""
+    total = tile_device_count(sp)
+    degree = local_dp or total
+    if not (1 <= degree <= total and total % degree == 0):
+        raise ValueError(f"--local-DP {degree} must divide the {total} tile devices")
+    return degree
+
+
+def junction_shard_index(sp: SpatialCtx, degree: int) -> Optional[int]:
+    """This device's batch shard under a degree-``degree`` junction: the
+    tile devices in row-major order, cut into ``degree`` contiguous groups
+    (each group computes one shard; ``spatial.py:113-125``).  None on the
+    one-process grid, which holds every shard."""
+    if sp.tiles.folded:
+        return None
+    return sp.tiles.rank // (tile_device_count(sp) // degree)
+
+
+def can_all_to_all_junction(sp: SpatialCtx, degree: int) -> bool:
+    """Every tile device takes its own shard: the junction is one
+    all_to_all (``spatial.py:150-158``)."""
+    return sp.rep_h == 1 and sp.rep_w == 1 and degree == sp.grid_h * sp.grid_w
+
+
+def apply_junction(x, sp_last: SpatialCtx, junction: str = "gather",
+                   local_dp: Optional[int] = None):
+    """The SP→LP junction: ``gather`` (the full activation everywhere) or
+    ``batch_split`` (this device's batch shard, ``spatial.py:188-214``)."""
+    if junction == "batch_split":
+        degree = junction_degree(sp_last, local_dp)
+        n = (x[0] if isinstance(x, tuple) else x).shape[0]
+        if n % degree:
+            raise ValueError(f"batch {n} not divisible by junction degree {degree}")
+        name = ("junction_batch_split_a2a" if can_all_to_all_junction(sp_last, degree)
+                else "junction_batch_split")
+        with scope(name):
+            return sp_last.tiles.batch_split(x, degree,
+                                             junction_shard_index(sp_last, degree))
     if junction != "gather":
-        raise NotImplementedError(
-            f"the {junction!r} junction (--local-DP) is not ported to PyTorch "
-            "yet (ROADMAP A7)"
-        )
+        raise ValueError(f"unknown junction {junction!r}")
     with scope("junction_gather"):
         return gather_spatial(x, sp_last)
+
+
+def tail_ctx(ctx: ApplyCtx, sp_last: SpatialCtx, junction: str,
+             local_dp: Optional[int]) -> ApplyCtx:
+    """The tail's context: unsharded; after a ``batch_split`` junction on
+    the one-process grid its batch holds ``degree`` shards, each normalised
+    with its own statistics (JAX's tail ``bn_stat_axes``,
+    ``spatial.py:467-478``).  With one tile per rank the step averages the
+    tail's running statistics over the ranks instead."""
+    c = ctx.with_spatial(None)
+    if junction == "batch_split" and sp_last.tiles.folded:
+        c = dataclasses.replace(c, bn_shards=junction_degree(sp_last, local_dp))
+    return c
 
 
 def apply_spatial_region(model: CellModel, x, ctx: ApplyCtx, stop: int,
@@ -107,16 +159,20 @@ def choose_spatial_until(shapes, tiles: int, itemsize: int = 2) -> int:
 
 def apply_spatial_model(model: CellModel, x, ctx: ApplyCtx,
                         spatial_until: Optional[int] = None,
-                        junction: str = "gather", remat=False):
+                        junction: str = "gather", remat=False,
+                        local_dp: Optional[int] = None):
     """Spatial region, junction, tail.  ``x`` is this process's tiles
-    (``sp.tiles.scatter`` of the image); the result is the full model's
-    output, whole.  ``spatial_until`` None: ``model.spatial_until``, else
-    every cell but the head (the head pools the whole image)."""
+    (``sp.tiles.scatter`` of the image); the result is the model's output
+    for the whole batch (``gather``, and ``batch_split`` on the one-process
+    grid) or for this device's shard (``batch_split`` with one tile a
+    rank).  ``spatial_until`` None: ``model.spatial_until``, else every
+    cell but the head (the head pools the whole image)."""
     sp = ctx.spatial
     if sp is None or not sp.active:
         raise ValueError("apply_spatial_model needs an active SpatialCtx")
     if spatial_until is None:
         spatial_until = model.spatial_until or (len(model.cells) - 1)
     x, sp_last = apply_spatial_region(model, x, ctx, spatial_until, remat=remat)
-    x = apply_junction(x, sp_last, junction)
-    return model(x, ctx.with_spatial(None), remat=remat, start=spatial_until)
+    x = apply_junction(x, sp_last, junction, local_dp)
+    return model(x, tail_ctx(ctx, sp_last, junction, local_dp), remat=remat,
+                 start=spatial_until)

@@ -15,8 +15,9 @@ iw)`` has index ``ih * grid_w + iw``.  A backend offers:
   (``lax.pmean``), for running statistics: this rank's value on
   :class:`ProcessGroupTiles`, a ``[T, ...]`` stack on :class:`TileGrid`.
 - :meth:`scatter` / :meth:`gather` — the full image to this process's
-  tiles and back (the junction).
-- :meth:`reduce_grads` — the gradient reduction over the tile group.
+  tiles and back (the ``gather`` junction).
+- :meth:`batch_split` — the ``batch_split`` junction (``--local-DP``):
+  the tiles to this device's batch shard of the full image.
 
 :class:`ProcessGroupTiles` holds one tile per rank of a
 ``torch.distributed`` group (gloo on the CPU, NCCL across cards); shifts
@@ -28,14 +29,16 @@ tile ``t``); shifts are indexing.  Every batch reduction then already
 spans the tiles, so its cross-tile sum is the identity and its count
 factor 1 — BatchNorm sums, K2's statistics and the loss are not counted
 twice.  Per-tile statistics (``--per-tile-bn``) view such a tensor as
-``[T, N, ...]`` (:meth:`TileGrid.per_tile`).  It exists so that one card,
+``[T, N, ...]`` (:meth:`TileGrid.per_tile`); after a ``batch_split``
+junction the tail views its batch as ``[degree, N / degree, ...]`` shards
+in the same way (``ApplyCtx.bn_shards``).  It exists so that one card,
 which holds one NCCL rank, can run the engine; the runners never use it
 in place of missing ranks.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import torch
 import torch.distributed as dist
@@ -116,8 +119,11 @@ class TileGrid:
 
         return _map_act(g, x)
 
-    def reduce_grads(self, grads: Sequence[torch.Tensor]) -> None:
-        """Nothing to reduce: one process holds every tile."""
+    def batch_split(self, x, degree: int, shard=None):
+        """The ``batch_split`` junction: the whole batch, whose ``degree``
+        row blocks are the shards that the tile devices would hold (a
+        replication group's identical copies are one shard here)."""
+        return self.gather(x)
 
 
 # ---------------------------------------------------------------------------
@@ -164,15 +170,50 @@ class _GatherTiles(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tiles, x):
         ctx.tiles = tiles
-        parts = [torch.empty_like(x) for _ in range(tiles.tiles)]
-        dist.all_gather(parts, x.contiguous(), group=tiles.group)
-        rows = [torch.cat(parts[r * tiles.grid_w:(r + 1) * tiles.grid_w], dim=2)
-                for r in range(tiles.grid_h)]
-        return torch.cat(rows, dim=1)
+        return tiles._assemble(x)
 
     @staticmethod
     def backward(ctx, g):
         return None, ctx.tiles._own(g).contiguous()
+
+
+class _AllToAllJunction(torch.autograd.Function):
+    """Tiles to batch shards in one all_to_all (``batch_split_all_to_all``,
+    degree = tile count): rank ``r`` sends its tile of batch shard ``j`` to
+    rank ``j`` and assembles shard ``r`` of the full image from the tiles it
+    receives.  The backward is the reverse all_to_all: with one shard a
+    rank the tail is no longer replicated, so nothing is counted twice."""
+
+    @staticmethod
+    def forward(ctx, tiles, x):
+        ctx.tiles = tiles
+        return tiles._tiles_to_shard(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.tiles._shard_to_tiles(g)
+
+
+class _GatherSlice(torch.autograd.Function):
+    """Gather, then keep batch shard ``k`` (``degree`` < tile count: a
+    replication group of ranks computes one shard).  The backward is the
+    adjoint of both: the shard's cotangent zero-padded to the full batch,
+    summed over the ranks, and this rank's tile of it."""
+
+    @staticmethod
+    def forward(ctx, tiles, k, degree, x):
+        ctx.tiles, ctx.k, ctx.degree = tiles, k, degree
+        full = tiles._assemble(x)
+        n = full.shape[0] // degree
+        return full[k * n:(k + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[0]
+        full = g.new_zeros((n * ctx.degree, *g.shape[1:]))
+        full[ctx.k * n:(ctx.k + 1) * n] = g
+        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=ctx.tiles.group)
+        return None, None, None, ctx.tiles._own(full).contiguous()
 
 
 class ProcessGroupTiles:
@@ -241,6 +282,14 @@ class ProcessGroupTiles:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t / self.tiles
 
+    def _assemble(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's tile, all-gathered into the full image."""
+        parts = [torch.empty_like(x) for _ in range(self.tiles)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        rows = [torch.cat(parts[r * self.grid_w:(r + 1) * self.grid_w], dim=2)
+                for r in range(self.grid_h)]
+        return torch.cat(rows, dim=1)
+
     def _own(self, t: torch.Tensor) -> torch.Tensor:
         h, w = t.shape[1] // self.grid_h, t.shape[2] // self.grid_w
         return t[:, self.ih * h:(self.ih + 1) * h, self.iw * w:(self.iw + 1) * w]
@@ -251,8 +300,32 @@ class ProcessGroupTiles:
     def gather(self, x):
         return _map_act(lambda t: _GatherTiles.apply(self, t), x)
 
-    def reduce_grads(self, grads: Sequence[torch.Tensor]) -> None:
-        """Sum the gradients over the ranks in place, in one all-reduce."""
-        from mpi4dl_tpu_torch.distributed import all_reduce_sum_
+    def _tiles_to_shard(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's tile ``[N, h, w, ...]`` → its batch shard of the full
+        image ``[N / T, H, W, ...]`` (shard r on rank r)."""
+        n = t.shape[0] // self.tiles
+        send = t.contiguous()
+        recv = torch.empty_like(send)  # [T * n, h, w, ...]: tile r of my shard
+        dist.all_to_all_single(recv, send, group=self.group)
+        parts = recv.reshape(self.grid_h, self.grid_w, n, *t.shape[1:])
+        h, w = t.shape[1], t.shape[2]
+        parts = parts.permute(2, 0, 3, 1, 4, *range(5, parts.dim()))
+        return parts.reshape(n, self.grid_h * h, self.grid_w * w, *t.shape[3:])
 
-        all_reduce_sum_(list(grads), self.group)
+    def _shard_to_tiles(self, g: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`_tiles_to_shard`."""
+        n = g.shape[0]
+        h, w = g.shape[1] // self.grid_h, g.shape[2] // self.grid_w
+        parts = g.reshape(n, self.grid_h, h, self.grid_w, w, *g.shape[3:])
+        send = parts.permute(1, 3, 0, 2, 4, *range(5, parts.dim())).contiguous()
+        recv = torch.empty_like(send).reshape(self.tiles * n, h, w, *g.shape[3:])
+        dist.all_to_all_single(recv, send.reshape(recv.shape), group=self.group)
+        return recv
+
+    def batch_split(self, x, degree: int, shard: int):
+        """The ``batch_split`` junction: batch shard ``shard`` of ``degree``
+        of the full image (this rank's); one all_to_all when every rank
+        takes its own shard, else gather and slice."""
+        if degree == self.tiles:
+            return _map_act(lambda t: _AllToAllJunction.apply(self, t), x)
+        return _map_act(lambda t: _GatherSlice.apply(self, shard, degree, t), x)

@@ -109,7 +109,7 @@ def test_main_runs_on_cpu_when_asked(capsys):
 
 
 # Items ported since the flags were first refused: their flags now parse.
-PORTED = {"A5", "A6"}
+PORTED = {"A5", "A6", "A7"}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -128,11 +128,15 @@ PORTED = {"A5", "A6"}
 ])
 def test_unported_flags_raise(flags, item):
     """A flag of an engine not ported yet raises and names its ROADMAP
-    item; the spatial flags (A5, A6) parse since the SP engine is ported."""
+    item; the flags of the ported engines (A5-A7: spatial parallelism, the
+    data axis and the pipelines) parse."""
     if item in PORTED:
         cfg = config_from_args(get_parser().parse_args(flags))
         assert cfg.num_spatial_parts == (4,)
         assert cfg.spatial_until in (None, 3) and cfg.halo_d2 == ("--halo-d2" in flags)
+        assert cfg.split_size == (2 if "--split-size" in flags else 1)
+        assert cfg.data_parallel == (2 if "--data-parallel" in flags else 1)
+        assert cfg.local_dp_lp == (2 if "--local-DP" in flags else 1)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         config_from_args(get_parser().parse_args(flags))
@@ -151,16 +155,20 @@ def test_resnet_is_refused_by_name():
 
 
 def test_sp_runner_needs_its_ranks():
-    """The SP runners never fall back to the one-process grid: without the
-    ranks of the tile grid they raise."""
+    """The runners never fall back to the one-process grid or stage chain:
+    without the ranks of the mesh they raise; SP x PP is refused by name."""
     from mpi4dl_tpu_torch.benchmarks.common import run
 
     with pytest.raises(RuntimeError, match="torchrun"):
         run("sp", "resnet", ["--device", "cpu", "--num-layers", "1"])
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         run("sp", "resnet", ["--device", "cpu", "--telemetry-dir", "t"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         run("sp", "resnet", ["--device", "cpu", "--local-DP", "2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        run("sp", "resnet", ["--device", "cpu", "--split-size", "2"])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        run("lp", "resnet", ["--device", "cpu", "--split-size", "2"])
 
 
 def test_sp_runner_trains_on_four_gloo_ranks():
@@ -179,3 +187,26 @@ def test_sp_runner_trains_on_four_gloo_ranks():
     summary = json.loads(out.stdout.strip().splitlines()[-1])
     assert summary["ranks"] == 4 and summary["spatial_until"] == 4
     assert len(summary["losses"]) == 2 and all(v > 0 for v in summary["losses"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--split-size", "4", "--schedule", "gpipe"],
+    ["--split-size", "2", "--data-parallel", "2", "--schedule", "1f1b"],
+])
+def test_lp_runner_trains_on_four_gloo_ranks(flags):
+    """``benchmark_resnet_lp`` under torchrun: one stage a rank (GPipe), and
+    DP2 x PP2 under 1F1B; the losses fall."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m",
+           "mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_resnet_lp",
+           "--device", "cpu", "--image-size", "32", "--num-layers", "1",
+           "--batch-size", "4", "--parts", "2", "--steps-per-epoch", "3",
+           "--lr", "0.01", *flags]
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["ranks"] == 4 and summary["schedule"] == flags[-1]
+    losses = summary["losses"]
+    assert len(losses) == 3 and losses[2] < losses[0]
