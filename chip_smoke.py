@@ -107,10 +107,13 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    all_to_all arm; on the one-process grid the tail normalises each shard
    with its own statistics): 1 warm-up and 2 timed steps with the dry
    run's launches; img/s and peak memory.
-13. Card against CPU, fp32, gradients within 1e-4 (norm-relative,
-   tests/test_torch_cuda.py): ResNet v1 and v2 with and without the
-   kernels; the reduced-depth SP D1 and D2 steps on the 2x2 grid; D2 with
-   ``--local-DP`` 2 (gather and slice) and 4 (all_to_all).
+13. Card against CPU (tests/test_torch_cuda.py, ``utils/devcheck.py``):
+   ResNet v1 and v2, fp32, with and without the kernels, gradients within
+   1e-4 (norm-relative); the reduced-depth SP D1 and D2 steps on the 2x2
+   grid and D2 with ``--local-DP`` 2 (gather and slice) and 4
+   (all_to_all): in float64 with the kernels off, the whole step's
+   gradient within 1e-8; in fp32 with the kernels on, each layer call's
+   and K2 window's output and VJP within 1e-4.
 14. Kernels on against off: step ms of the single-card AmoebaNet-D(18,
    416) 1024² bs1 step and of the GPipe step of phase 10, on, off, on.
 15. The kernels' JSON line, the card line, and last the result line.  K1's
@@ -1158,13 +1161,6 @@ def all_dry_runs():
     return out
 
 
-def norm_rel(got, ref) -> float:
-    """‖got − ref‖ / ‖ref‖ over lists of tensors, in float64 on the host."""
-    diff = sum(float(((a.detach().cpu() - b.detach().cpu()).double() ** 2).sum())
-               for a, b in zip(got, ref))
-    return (diff / sum(float((b.detach().cpu().double() ** 2).sum()) for b in ref)) ** 0.5
-
-
 def phase_pp_slice(preds):
     """The full-width pipeline steps: GPipe, then 1F1B, 1 warm-up and 3
     timed steps each, launches equal to the dry run's; 1F1B's peak below
@@ -1250,112 +1246,23 @@ def phase_ldp_slice(preds):
     return launches
 
 
-def sp_step_run(dev, state_dict, d2, local_dp=None, eps=0.0, model=None):
-    """A reduced-depth SP step's loss and gradient in fp32, kernels on:
-    AmoebaNet-D(3, 32), batch 4 at 256², the one-process 2x2 grid, the
-    gather junction or batch_split of degree ``local_dp``; ``eps`` scales
-    a relative perturbation of the input; ``model`` is built unless given.
-    Returns (loss, grads, model)."""
-    import torch
-
-    from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, spatial_ctx_for
-    from mpi4dl_tpu_torch.models import amoebanetd
-    from mpi4dl_tpu_torch.parallel.spatial import apply_spatial_model
-    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
-    from mpi4dl_tpu_torch.train import cross_entropy
-
-    shape = (4, 256, 256, 3)
-    if model is None:
-        model = amoebanetd(shape, num_classes=10, num_layers=3, num_filters=32, device=dev)
-    if state_dict is not None:
-        model.load_state_dict(state_dict)
-    g = torch.Generator().manual_seed(2)
-    x, y = torch.randn(shape, generator=g), torch.tensor([1, 4, 7, 9])
-    x = x * (1 + eps * torch.randn(shape, generator=torch.Generator().manual_seed(9)))
-    sp = spatial_ctx_for("square", 4, tiles=TileGrid(2, 2), d2_mode=d2,
-                         use_pallas_conv=True)
-    ctx = ApplyCtx(train=True, spatial=sp, bn_sink={})
-    logits = apply_spatial_model(model, sp.tiles.scatter(x.to(dev)), ctx,
-                                 junction="batch_split" if local_dp else "gather",
-                                 local_dp=local_dp)
-    loss = cross_entropy(logits, y.to(dev))
-    return float(loss), torch.autograd.grad(loss, list(model.parameters())), model
-
-
-def replay_units(model, run, dev):
-    """Every unit that ``run()`` (a forward of ``model`` on the CPU) computes — each
-    Layer call and each fused [ReLU, Conv2d, BatchNorm] window (K2) — is
-    recorded with its input and context, then replayed on ``dev`` and on
-    the CPU with one random cotangent.  Returns the number of units and
-    the worst norm-relative difference of their outputs and of their
-    VJPs (input and parameters), device against CPU.  Unlike a whole
-    step's gradient, a unit's VJP is continuous in its input, so fp32
-    rounding cannot move it far."""
-    import copy
-    import dataclasses
-
-    import torch
-
-    from mpi4dl_tpu_torch.layers import Layer
-    from mpi4dl_tpu_torch.ops import d2
-
-    calls = []
-    real = d2._apply_fused_triple
-
-    def fused(cv, bn, x, ctx, sub, mh, mw):
-        calls.append(("fused", (cv, bn), x.detach().clone(), ctx, (sub, mh, mw)))
-        return real(cv, bn, x, ctx, sub, mh, mw)
-
-    mods = [m for m in model.modules() if isinstance(m, Layer)]
-    hooks = [m.register_forward_hook(
-        lambda mod, args, out: calls.append(("layer", (mod,), args[0].detach().clone(),
-                                             args[1], ())))
-        for m in mods]
-    d2._apply_fused_triple = fused
-    try:
-        run()
-    finally:
-        d2._apply_fused_triple = real
-        for h in hooks:
-            h.remove()
-    gen = torch.Generator().manual_seed(5)
-    worst_y = worst_g = 0.0
-    for kind, parts, x, ctx, extra in calls:
-        ctx = dataclasses.replace(ctx, bn_sink=None)
-        outs = []
-        for d in ("cpu", dev):
-            mods_d = [copy.deepcopy(m).to(d) for m in parts]
-            xd = x.to(d).requires_grad_()
-            if kind == "layer":
-                y = mods_d[0](xd, ctx)
-            else:
-                y = real(*mods_d, xd, ctx, *extra)[0]
-            if not outs:
-                ct = torch.randn(y.shape, generator=gen)
-            params = [p for m in mods_d for p in m.parameters()]
-            got = torch.autograd.grad(y, [xd] + params, grad_outputs=ct.to(d),
-                                      allow_unused=True)
-            outs.append((y, got))
-        (y0, g0), (y1, g1) = outs
-        worst_y = max(worst_y, norm_rel([y1], [y0]))
-        worst_g = max([worst_g] + [norm_rel([b], [a]) for a, b in zip(g0, g1)
-                                   if a is not None and float(a.abs().max()) > 0])
-    return len(calls), worst_y, worst_g
-
-
 def phase_card_vs_cpu():
-    """The card against the CPU, fp32 (tests/test_torch_cuda.py): ResNet v1
-    (depth 8) and v2 (depth 11) at 64² batch 2, whole-model gradients
+    """The card against the CPU (tests/test_torch_cuda.py).  fp32: ResNet
+    v1 (depth 8) and v2 (depth 11) at 64² batch 2, whole-model gradients
     within 1e-4 (norm-relative), with and without the kernels.  The
     reduced-depth SP D1 and D2 steps on the 2x2 grid, and D2 with the
     batch_split junction at degree 2 (gather and slice) and 4
-    (all_to_all): the loss within rtol 1e-5, and every layer call and K2
+    (all_to_all), each twice.  In float64 with the kernels off, the whole
+    step: loss within rtol 1e-10, gradient within 1e-8 (norm-relative;
+    the CPU's own change under a 1e-12 relative perturbation of the input
+    is printed beside it), also for D1 at batch 2.  In fp32 with the
+    kernels on: the loss within rtol 1e-5, and every layer call and K2
     window of the step replayed on its recorded input, outputs and VJPs
-    within 1e-4 (norm-relative).  The whole step's gradient is printed
-    beside the CPU's own change under a 1e-6 relative perturbation of the
-    input: AmoebaNet's ReLU → BatchNorm → max-pool chains route gradients
-    by ties that fp32 rounding flips, so that gradient is not continuous
-    at rounding scale and is not held to 1e-4."""
+    within 1e-4.  The fp32 whole step's gradient is printed beside the
+    CPU's own change under a 1e-6 perturbation: AmoebaNet's ReLU →
+    BatchNorm → max-pool chains route gradients by ties that fp32 rounding
+    flips, so that gradient is not continuous at fp32 rounding scale and
+    is not held to 1e-4."""
     import warnings
 
     import torch
@@ -1363,6 +1270,7 @@ def phase_card_vs_cpu():
     from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
     from mpi4dl_tpu_torch.models import get_resnet_v1, get_resnet_v2
     from mpi4dl_tpu_torch.train import cross_entropy
+    from mpi4dl_tpu_torch.utils.devcheck import norm_rel, replay_units, sp_step_run
 
     warnings.simplefilter("ignore")  # the pad-once pool notice
     t0 = time.perf_counter()
@@ -1387,19 +1295,36 @@ def phase_card_vs_cpu():
             print(f"card vs cpu: ResNet v{version} depth {depth} 64^2 bs2 kernels "
                   f"{'on' if knob else 'off'}: gradient rel {rel:.2e}", flush=True)
             assert rel <= 1e-4, (version, knob, rel)
-    for label, d2, local_dp in (("SP D1", False, None), ("SP D2", True, None),
-                                ("SP D2 --local-DP 2", True, 2),
-                                ("SP D2 --local-DP 4", True, 4)):
+    f64 = torch.float64
+    for label, d2, local_dp, batch in (("SP D1", False, None, 2), ("SP D1", False, None, 4),
+                                       ("SP D2", True, None, 4),
+                                       ("SP D2 --local-DP 2", True, 2, 4),
+                                       ("SP D2 --local-DP 4", True, 4, 4)):
+        loss, ref, model = sp_step_run("cpu", None, d2, local_dp, dtype=f64, batch=batch)
+        state = model.state_dict()
+        _, ref_p, _ = sp_step_run("cpu", state, d2, local_dp, eps=1e-12, dtype=f64,
+                                  batch=batch)
+        loss_d, got, _ = sp_step_run(dev, state, d2, local_dp, dtype=f64, batch=batch)
+        rel = norm_rel(got, ref)
+        print(f"card vs cpu: {label} AmoebaNet-D(3,32) 256^2 bs{batch} 2x2 float64 kernels "
+              f"off: loss {loss_d!r} vs {loss!r}; whole-step gradient rel {rel:.2e} (the "
+              f"CPU's own under a 1e-12 input perturbation: {norm_rel(ref_p, ref):.2e})",
+              flush=True)
+        assert abs(loss_d - loss) <= 1e-10 * abs(loss), (label, batch, loss_d, loss)
+        assert rel <= 1e-8, (label, batch, rel)
+        if batch != 4:
+            continue
         loss, ref, model = sp_step_run("cpu", None, d2, local_dp)
         state = model.state_dict()
-        loss_p, ref_p, _ = sp_step_run("cpu", state, d2, local_dp, eps=1e-6)
+        _, ref_p, _ = sp_step_run("cpu", state, d2, local_dp, eps=1e-6)
         loss_d, got, _ = sp_step_run(dev, state, d2, local_dp)
         units, err_y, err_g = replay_units(
             model, lambda: sp_step_run("cpu", None, d2, local_dp, model=model), dev)
-        print(f"card vs cpu: {label} AmoebaNet-D(3,32) 256^2 bs4 2x2: loss {loss_d:.7f} vs "
-              f"{loss:.7f}; {units} units replayed, worst output rel {err_y:.2e}, VJP rel "
-              f"{err_g:.2e}; whole-step gradient rel {norm_rel(got, ref):.2e} (the CPU's "
-              f"own under a 1e-6 input perturbation: {norm_rel(ref_p, ref):.2e})", flush=True)
+        print(f"card vs cpu: {label} AmoebaNet-D(3,32) 256^2 bs4 2x2 fp32 kernels on: loss "
+              f"{loss_d:.7f} vs {loss:.7f}; {units} units replayed, worst output rel "
+              f"{err_y:.2e}, VJP rel {err_g:.2e}; whole-step gradient rel "
+              f"{norm_rel(got, ref):.2e} (the CPU's own under a 1e-6 input perturbation: "
+              f"{norm_rel(ref_p, ref):.2e})", flush=True)
         assert abs(loss_d - loss) <= 1e-5 * abs(loss), (label, loss_d, loss)
         assert err_y <= 1e-4 and err_g <= 1e-4, (label, err_y, err_g)
     print(f"card vs cpu: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -8,7 +8,9 @@ over the ranks (``mesh.build_process_mesh``: rank layout row-major over
 the same on every rank) and the family's step, then train on a synthetic
 global batch made from ``--seed`` (``--batch-size`` images per data
 replica, as in the JAX runner) and print one line per step and the
-``StepMeter`` summary (the first step is the warm-up).
+``StepMeter`` summary (the first step is the warm-up).  The ``sp``
+family's last line also says whether the tile ranks' tails agree
+(``tail_agreement``).
 
 - ``lp``: ``--split-size 1`` trains on one device, or DP with
   ``--data-parallel``; more stages run ``make_pipeline_train_step`` with
@@ -28,10 +30,12 @@ engines directly.  Telemetry, resilience and checkpoints are not ported
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from mpi4dl_tpu_torch.config import config_from_args, get_parser, resolve_pallas_conv
 from mpi4dl_tpu_torch.device import resolve_device
@@ -196,8 +200,31 @@ def run(family: str, model: str, argv=None) -> dict:
     out = {"images_per_sec": meter.images_per_sec(), "losses": losses,
            "stats": meter.stats(), "peak_bytes": peak,
            "launches": dict(halo_conv.LAUNCHES), "ranks": spec.size, **notes}
+    if family == "sp":
+        out.update(tail_agreement(state.model.cells[notes["spatial_until"]:],
+                                  mesh.tiles.group))
     say(json.dumps(out), flush=True)
     return out
+
+
+def tail_agreement(tail, group) -> dict:
+    """Whether the tile ranks of ``group`` hold the same tail (the cells
+    after the junction, replicated on every tile): the number of its
+    parameters and running statistics whose bits differ across the ranks
+    (or are not finite), and the largest difference."""
+    differing, worst = 0, 0.0
+    tensors = list(tail.state_dict().values())
+    for t in tensors:
+        hi = t.detach().float().clone()
+        lo = hi.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        d = float((hi - lo).max()) if t.numel() else 0.0
+        if d > 0 or not math.isfinite(d):
+            differing += 1
+        worst = max(worst, d)
+    return {"tail_tensors": len(tensors), "tail_differing": differing,
+            "tail_max_abs_diff": worst}
 
 
 def _profile_step(path: str, rank: int, step, dev, say) -> None:

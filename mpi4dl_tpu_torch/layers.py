@@ -174,23 +174,24 @@ class Conv2d(Layer):
 
 class _BNStats(torch.autograd.Function):
     """(Σx, Σx²) over all but the channel dim and the first ``lead`` dims,
-    accumulated in fp32 from the input dtype without keeping an fp32 copy
-    of x for the backward; the gradient is JAX's: each term cast to x's
-    dtype, then added."""
+    accumulated in fp32 (float64 for a float64 x) from the input dtype
+    without keeping an fp32 copy of x for the backward; the gradient is
+    JAX's: each term cast to x's dtype, then added."""
 
     @staticmethod
     def forward(ctx, x, lead):
         ctx.save_for_backward(x)
         dims = tuple(range(lead, x.dim() - 1))
-        return (torch.sum(x, dim=dims, dtype=torch.float32),
-                torch.sum(torch.square(x.float()), dim=dims))
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return (torch.sum(x, dim=dims, dtype=acc),
+                torch.sum(torch.square(x.to(acc)), dim=dims))
 
     @staticmethod
     def backward(ctx, ct_s, ct_ss):
         (x,) = ctx.saved_tensors
         shape = ct_s.shape[:-1] + (1,) * (x.dim() - ct_s.dim()) + ct_s.shape[-1:]
         ct_s, ct_ss = ct_s.reshape(shape), ct_ss.reshape(shape)
-        return ct_s.to(x.dtype) + (2.0 * x.float() * ct_ss).to(x.dtype), None
+        return ct_s.to(x.dtype) + (2.0 * x.to(ct_ss.dtype) * ct_ss).to(x.dtype), None
 
 
 def per_tile_view(x: torch.Tensor, sp, shards: int = 1):

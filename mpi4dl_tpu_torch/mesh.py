@@ -84,7 +84,6 @@ class ProcessMesh:
     tiles: Optional[ProcessGroupTiles]
     data: Optional[DataAxis]
     stage_group: object
-    data_stage_group: object  # the ranks of this tile over data and stages
 
 
 def _groups(spec: MeshSpec, vary: Tuple[int, ...]):
@@ -138,21 +137,7 @@ def build_process_mesh(spec: MeshSpec) -> ProcessMesh:
                      mine.get("data_tiles") if tiles else None,
                      mine.get("data_stage") if "stage" in mine else None)
             if "data" in mine else None)
-    return ProcessMesh(spec, tiles, data, mine.get("stage"), mine.get("data_stage"))
-
-
-def build_mesh(spec: MeshSpec, group=None) -> ProcessGroupTiles:
-    """The tile grid of ``spec`` over ``group`` (default: every rank), one
-    tile per rank.  Raises unless the group has exactly ``spec.size``
-    ranks; the first collective on the group is a barrier, so that later
-    point-to-point batches never open it (NCCL asks that every rank take
-    part in a group's first collective).  A mesh with data or stage axes
-    takes :func:`build_process_mesh`."""
-    if spec.data != 1 or spec.stage != 1:
-        raise ValueError(f"mesh {spec} has data or stage axes: build_process_mesh")
-    tiles = ProcessGroupTiles(spec.sph, spec.spw, group)
-    dist.barrier(group=tiles.group)
-    return tiles
+    return ProcessMesh(spec, tiles, data, mine.get("stage"))
 
 
 def initialize_distributed(backend=None, timeout_s: float = 600.0) -> int:

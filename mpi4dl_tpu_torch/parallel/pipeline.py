@@ -12,8 +12,7 @@ JAX's ``metric_psum``: its backward needs no collective): the last stage
 seeds its backward with 1/Pn per micro-batch, and no cotangent is
 all-reduced.  With a data axis each replica trains on its slice of the
 batch, and the gradients and the running statistics are averaged over
-the replicas in one all-reduce (``grad_pmean``).  Quantized collectives
-(``quant``) are ROADMAP A13.
+the replicas in one all-reduce (``grad_pmean``).
 """
 
 from __future__ import annotations
@@ -45,8 +44,7 @@ def make_pipeline_train_step(part: StagePartition, optimizer: Optimizer, stages,
                              parts: int, compute_dtype=torch.float32,
                              remat: bool = True, with_data_axis=None,
                              loss_scale: float = 1.0,
-                             schedule: str = "gpipe", pallas_conv: bool = False,
-                             quant=None):
+                             schedule: str = "gpipe", pallas_conv: bool = False):
     """``step(state, x, labels) -> (state, metrics)``: ``x`` is the global
     batch, ``parts * microbatch`` images per data replica.
 
@@ -61,9 +59,6 @@ def make_pipeline_train_step(part: StagePartition, optimizer: Optimizer, stages,
     :class:`~mpi4dl_tpu_torch.mesh.DataAxis`): DP x PP."""
     if schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown schedule {schedule!r}; use 'gpipe' or '1f1b'")
-    if quant is not None:
-        raise NotImplementedError("quantized collectives (--quant) are not ported "
-                                  "to PyTorch yet (ROADMAP A13)")
     ctx = ApplyCtx(train=True,
                    spatial=SpatialCtx(use_pallas_conv=True) if pallas_conv else None)
     params = local_params(part, stages)

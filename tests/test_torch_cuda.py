@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from mpi4dl_tpu_torch.ops import halo_conv as hc
+from mpi4dl_tpu_torch.utils.devcheck import norm_rel
 
 pytestmark = pytest.mark.cuda
 
@@ -317,12 +318,6 @@ def test_amoebanet_gradient_on_card_matches_cpu(card):
         assert diff <= 1e-4 * norm, (knob, diff / norm)
 
 
-def _norm_rel(got, ref) -> float:
-    """‖got − ref‖ / ‖ref‖ over lists of tensors, in float64."""
-    diff = sum(float(((a.cpu() - b).double() ** 2).sum()) for a, b in zip(got, ref))
-    return (diff / sum(float((b.double() ** 2).sum()) for b in ref)) ** 0.5
-
-
 @pytest.mark.parametrize("version", [1, 2])
 def test_resnet_gradient_on_card_matches_cpu(card, version):
     """ResNet v1 (depth 8) and v2 (depth 11) on the card, with and without
@@ -349,27 +344,37 @@ def test_resnet_gradient_on_card_matches_cpu(card, version):
 
     ref = grads("cpu", False)
     for knob in (False, True):
-        assert _norm_rel(grads(card, knob), ref) <= 1e-4, knob
+        assert norm_rel(grads(card, knob), ref) <= 1e-4, knob
 
 
-@pytest.mark.parametrize("d2,local_dp", [(False, None), (True, None), (True, 2), (True, 4)])
-def test_sp_step_on_card_matches_cpu(card, d2, local_dp):
+@pytest.mark.parametrize("d2,local_dp,batch", [(False, None, 2), (False, None, 4),
+                                                (True, None, 4), (True, 2, 4), (True, 4, 4)])
+def test_sp_step_on_card_matches_cpu(card, d2, local_dp, batch):
     """The reduced-depth SP D1 and D2 steps on the one-process grid (and D2
-    with the ``batch_split`` junction at degrees 2 and 4): the loss within
-    rtol 1e-5 of the CPU's, and every layer call and K2 window of the step,
-    replayed on its recorded input on the card and on the CPU, within 1e-4
-    (norm-relative) in its output and its VJP.  The whole step's gradient
-    is not held to 1e-4: AmoebaNet's ReLU → BatchNorm → max-pool chains
-    route it by ties that fp32 rounding flips (a 1e-6 perturbation of the
-    input moves it by ~1% on the CPU alone; chip_smoke.py prints both)."""
-    import sys
+    with the ``batch_split`` junction at degrees 2 and 4).  In float64 with
+    the kernels off, the whole step on the card (halo exchanges, tile
+    scatter and gather, the junction and their adjoints) against the CPU's:
+    loss within rtol 1e-10, gradient within 1e-8 (norm-relative).  In fp32
+    with the kernels on (batch 4): the loss within rtol 1e-5, and every
+    layer call and K2 window of the step, replayed on its recorded input
+    on the card and on the CPU, within 1e-4 (norm-relative) in its output
+    and its VJP.  The fp32 whole step's gradient is not held to 1e-4:
+    AmoebaNet's ReLU → BatchNorm → max-pool chains route it by ties that
+    fp32 rounding flips (a 1e-6 perturbation of the input moves it by ~1%
+    on the CPU alone; chip_smoke.py prints both)."""
     import warnings
-    from pathlib import Path
 
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from chip_smoke import replay_units, sp_step_run
+    from mpi4dl_tpu_torch.utils.devcheck import replay_units, sp_step_run
 
     warnings.simplefilter("ignore")  # the pad-once pool notice
+    f64 = torch.float64
+    loss, ref, model = sp_step_run("cpu", None, d2, local_dp, dtype=f64, batch=batch)
+    loss_d, got, _ = sp_step_run(card, model.state_dict(), d2, local_dp, dtype=f64,
+                                 batch=batch)
+    assert abs(loss_d - loss) <= 1e-10 * abs(loss)
+    assert norm_rel(got, ref) <= 1e-8
+    if batch != 4:
+        return
     loss, _, model = sp_step_run("cpu", None, d2, local_dp)
     loss_d, _, _ = sp_step_run(card, model.state_dict(), d2, local_dp)
     assert abs(loss_d - loss) <= 1e-5 * abs(loss)

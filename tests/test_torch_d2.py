@@ -394,14 +394,14 @@ def _rank_main(rank: int, world: int, workdir: Path) -> None:
 
     import torch.distributed as dist
 
-    from mpi4dl_tpu_torch.mesh import MeshSpec as TMeshSpec, build_mesh as t_build_mesh
+    from mpi4dl_tpu_torch.mesh import MeshSpec as TMeshSpec, build_process_mesh
     from mpi4dl_tpu_torch.ops.halo import HaloSpec, halo_exchange_2d
     from mpi4dl_tpu_torch.parallel.tiles import ProcessGroupTiles
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{workdir / 'rendezvous'}",
                             rank=rank, world_size=world, timeout=timedelta(seconds=60))
-    tiles = t_build_mesh(TMeshSpec(sph=2, spw=2))
+    tiles = build_process_mesh(TMeshSpec(sph=2, spw=2)).tiles
     out = {}
     for method, (gh, gw) in GLOO_GRIDS.items():
         t = tiles if method == "square" else ProcessGroupTiles(gh, gw)

@@ -173,7 +173,8 @@ def test_sp_runner_needs_its_ranks():
 
 def test_sp_runner_trains_on_four_gloo_ranks():
     """``benchmark_amoebanet_sp`` under torchrun: four gloo ranks, one tile
-    each, D2 with the kernel knob (the plain versions on the CPU)."""
+    each, D2 with the kernel knob (the plain versions on the CPU); the
+    ranks' tails agree bitwise."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "4", "-m",
@@ -187,6 +188,7 @@ def test_sp_runner_trains_on_four_gloo_ranks():
     summary = json.loads(out.stdout.strip().splitlines()[-1])
     assert summary["ranks"] == 4 and summary["spatial_until"] == 4
     assert len(summary["losses"]) == 2 and all(v > 0 for v in summary["losses"])
+    assert summary["tail_tensors"] > 0 and summary["tail_differing"] == 0
 
 
 @pytest.mark.parametrize("flags", [
