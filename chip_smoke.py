@@ -116,15 +116,35 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and K2 window's output and VJP within 1e-4.
 14. Kernels on against off: step ms of the single-card AmoebaNet-D(18,
    416) 1024² bs1 step and of the GPipe step of phase 10, on, off, on.
-15. The kernels' JSON line, the card line, and last the result line.  K1's
+15. GEMS, SP x PP and SP + GEMS slices: AmoebaNet-D(18, 416), 1024²,
+   batch 4, bf16 over fp32 params, SGD lr 1e-3, kernels on, remat off.
+   GEMS on the one-process stage chain, 4 stages, times 1 x 2 streams x
+   parts 2 x 1 image, GPipe then 1F1B; SP x PP (parts 2 of 2 images) and
+   SP + GEMS (times 1 x 2 x parts 1 x 2 images) on the 2x2 grid with
+   halo-D2, the gather junction after cell 12, the tail over 2 stages of
+   the chain.  1 warm-up and 3 timed steps each, finite losses and each
+   step's K1/K2 launches equal to its dry run's; img/s, ms a step, peak.
+16. Engine checks at reduced depth (``utils/devcheck.engine_run``): GEMS
+   over 4 and 3 stages and SP x PP / SP + GEMS on the 1x2 grid, GPipe and
+   1F1B, against the single-card step accumulated over the same
+   micro-batches, two steps: ResNet-11 v2 32² in fp32 with the kernels on
+   (losses rtol 1e-4, parameters rtol 2e-3 / atol 1e-5, the JAX tests');
+   AmoebaNet-D(3, 32) 128² in float64 with the kernels off (losses rtol
+   1e-10, updates within 1e-8 norm-relative).  The striped ResNet branch
+   (C3; ``utils/devcheck.hstripe_run`` with its gates lowered), card
+   against CPU, per-stripe and exact statistics: loss rtol 1e-5,
+   gradients and running statistics within 1e-4.
+17. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
    each path (single-card AmoebaNet, SP AmoebaNet, SP ResNet, the GPipe
-   and 1F1B steps, the local-DP ResNet step).
+   and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
+   GEMS steps).
 
-Phases 7-14 run between phases 3 and 4.  The dry runs (meta device, CPU
-only) run in a worker process from the start, beside phases 1-3.
+Phases 7-16 run between phases 3 and 4, each printing its seconds.  The
+dry runs (meta device, CPU only) run in two worker processes from the
+start, beside phases 1-3.
 """
 
 from __future__ import annotations
@@ -1161,6 +1181,18 @@ def all_dry_runs():
     return out
 
 
+def engine_dry_runs():
+    """The GEMS and SP x PP paths' dry runs, in a second worker."""
+    out = {}
+    for name, schedule in GEMS_PATHS.items():
+        out[name] = dry_run(gems_parts, (GEMS_BATCH, GEMS_IMAGE, GEMS_IMAGE, 3),
+                            schedule=schedule)
+    for name, engine in SPPP_PATHS.items():
+        out[name] = dry_run(sppp_parts, (SPPP_BATCH, GEMS_IMAGE, GEMS_IMAGE, 3),
+                            engine=engine)
+    return out
+
+
 def phase_pp_slice(preds):
     """The full-width pipeline steps: GPipe, then 1F1B, 1 warm-up and 3
     timed steps each, launches equal to the dry run's; 1F1B's peak below
@@ -1381,6 +1413,164 @@ def phase_kernels_ab():
     print(f"kernels a/b: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# The GEMS and SP x PP slices: AmoebaNet-D(18, 416) at 1024², batch 4, bf16,
+# kernels on, remat off.  GEMS: 4 stages on the one-process chain, times 1 x 2
+# streams x parts 2 x 1 image (the pipeline slice's batch as two streams).
+# SP x PP and SP + GEMS: the 2x2 grid, halo-D2, the gather junction after cell
+# 12 (the first of two even splits of the 24 cells, where the runner puts it),
+# the tail over 2 stages of the chain; SP x PP in 2 micro-batches of 2, SP +
+# GEMS times 1 x 2 streams x parts 1 x 2 images (2·times·parts == stages).
+GEMS_PATHS = {"amoebanet_1024_gems_chain_gpipe": "gpipe",
+              "amoebanet_1024_gems_chain_1f1b": "1f1b"}
+GEMS_BATCH, GEMS_PARTS, GEMS_SPLIT, GEMS_IMAGE = 4, 2, 4, 1024
+SPPP_PATHS = {"amoebanet_1024_sp_pp_grid": "sp_pp", "amoebanet_1024_sp_gems_grid": "sp_gems"}
+SPPP_BATCH, SPPP_SPLIT, SPPP_UNTIL = 4, 2, 12
+
+
+def gems_parts(dev, schedule):
+    """(model, step, state) of the GEMS step on the one-process chain."""
+    import torch
+
+    from mpi4dl_tpu_torch.models import amoebanetd
+    from mpi4dl_tpu_torch.parallel.gems import make_gems_train_step
+    from mpi4dl_tpu_torch.parallel.partition import StagePartition
+    from mpi4dl_tpu_torch.parallel.pipeline import init_pipeline_state
+    from mpi4dl_tpu_torch.parallel.stages import StageChain
+    from mpi4dl_tpu_torch.train import Optimizer
+
+    model = amoebanetd((GEMS_BATCH, GEMS_IMAGE, GEMS_IMAGE, 3), num_classes=1000, num_layers=18,
+                       num_filters=416, device=dev, seed=0)
+    part = StagePartition.build(model, GEMS_SPLIT,
+                                (GEMS_BATCH // (2 * GEMS_PARTS), GEMS_IMAGE, GEMS_IMAGE, 3))
+    opt = Optimizer("sgd", lr=1e-3)
+    step = make_gems_train_step(part, opt, StageChain(GEMS_SPLIT), GEMS_PARTS,
+                                compute_dtype=torch.bfloat16, remat=False,
+                                schedule=schedule, pallas_conv=True)
+    return model, step, init_pipeline_state(part, opt, StageChain(GEMS_SPLIT))
+
+
+def sppp_parts(dev, engine):
+    """(model, step, state) of the SP x PP (``engine`` "sp_pp") or SP +
+    GEMS ("sp_gems") step on the one-process 2x2 grid and stage chain."""
+    import torch
+
+    from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
+    from mpi4dl_tpu_torch.models import amoebanetd
+    from mpi4dl_tpu_torch.parallel.sp_pipeline import (
+        SPPipeline, init_sp_pipeline_state, make_sp_gems_train_step,
+        make_sp_pipeline_train_step,
+    )
+    from mpi4dl_tpu_torch.parallel.stages import StageChain
+    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
+    from mpi4dl_tpu_torch.train import Optimizer
+
+    model = amoebanetd((SPPP_BATCH, GEMS_IMAGE, GEMS_IMAGE, 3), num_classes=1000, num_layers=18,
+                       num_filters=416, device=dev, seed=0)
+    model.spatial_until = SPPP_UNTIL
+    sp = spatial_ctx_for("square", 4, tiles=TileGrid(2, 2), d2_mode=True,
+                         use_pallas_conv=True)
+    gems = engine == "sp_gems"
+    parts = 1 if gems else 2
+    spp = SPPipeline.build(model, SPPP_SPLIT, sp, SPPP_BATCH // (2 * parts if gems else parts),
+                           junction="gather")
+    opt = Optimizer("sgd", lr=1e-3)
+    chain = StageChain(SPPP_SPLIT)
+    kw = dict(compute_dtype=torch.bfloat16, remat=False)
+    step = (make_sp_gems_train_step(spp, opt, chain, parts, times=1, **kw) if gems
+            else make_sp_pipeline_train_step(spp, opt, chain, parts, **kw))
+    return model, step, init_sp_pipeline_state(spp, opt, chain)
+
+
+def phase_gems_sppp_slices(preds):
+    """The full-width GEMS (GPipe, 1F1B), SP x PP and SP + GEMS steps: 1
+    warm-up and 3 timed steps each, launches equal to the dry runs'."""
+    import torch
+
+    dev = torch.device("cuda")
+    out = {}
+    runs = ([(name, lambda s=s: gems_parts(dev, s), GEMS_BATCH, f"bs{GEMS_BATCH} "
+              f"times 1 x 2 x parts {GEMS_PARTS} stages {GEMS_SPLIT} chain")
+             for name, s in GEMS_PATHS.items()]
+            + [(name, lambda e=e: sppp_parts(dev, e), SPPP_BATCH,
+                f"bs{SPPP_BATCH} 2x2 D2 + {SPPP_SPLIT} stages, junction after cell "
+                f"{SPPP_UNTIL}") for name, e in SPPP_PATHS.items()])
+    for name, build, batch, what in runs:
+        t0 = time.perf_counter()
+        parts = build()
+        losses, times, peak, launches = sp_train(dev, parts, preds[name], 4, name,
+                                                 batch=batch)
+        print(f"gems/sp-pp slice: {name} {what} bf16: {batch * len(times) / sum(times):.3f} "
+              f"img/s ({1e3 * sum(times) / len(times):.1f} ms/step), peak "
+              f"{peak / 2**30:.2f} GiB, first-step loss {losses[0]:.6f} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        out[name] = launches
+        del parts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_engine_checks():
+    """Reduced depth on the card, each engine against the single-card step
+    accumulated over the same micro-batches (utils/devcheck.engine_run,
+    two steps): ResNet-11 v2 32² in fp32 with the kernels on, GEMS over 4
+    and 3 stages and SP x PP / SP + GEMS (1x2 grid, 2 stages), GPipe and
+    1F1B, within the JAX tests' bounds (losses rtol 1e-4, parameters rtol
+    2e-3 / atol 1e-5); AmoebaNet-D(3, 32) 128² in float64 with the kernels
+    off, where rounding flips no max-pool tie: losses rtol 1e-10, the
+    parameters' updates within 1e-8 (norm-relative).  Then the striped
+    ResNet branch (C3), card against CPU with its gates lowered, per-stripe
+    and exact statistics: loss rtol 1e-5, gradients and running statistics
+    within 1e-4 (norm-relative)."""
+    import torch
+
+    from mpi4dl_tpu_torch.utils.devcheck import (
+        engine_run, hstripe_gates, hstripe_run, norm_rel,
+    )
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cases = [(e, dict(split=sp, parts=2, schedule=s), 1)
+             for e, sp in (("gems", 4), ("gems", 3)) for s in ("gpipe", "1f1b")]
+    cases += [(e, dict(parts=p, schedule=s), 2) for e, p in (("sp_pp", 2), ("sp_gems", 1))
+              for s in ("gpipe", "1f1b")]
+    for arch, dtype in (("resnet", torch.float32), ("amoebanet", torch.float64)):
+        f64 = dtype == torch.float64
+        kw = dict(arch=arch, dtype=dtype, pallas=not f64)
+        if f64:
+            kw.update(image=128, spatial_until=5)
+        init = engine_run("cpu", "single", steps=0, **kw)[1]
+        refs = {m: engine_run(dev, "single", micro=m, **kw) for m in (1, 2)}
+        for engine, extra, micro in cases:
+            losses, got = engine_run(dev, engine, micro=micro, **extra, **kw)
+            want_losses, want = refs[micro]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+            keys = [k for k in init if init[k].is_floating_point()]
+            upd = norm_rel([got[k] - init[k] for k in keys], [want[k] - init[k] for k in keys])
+            print(f"engine checks: {arch} {dtype} {engine} {extra}: losses {losses} vs "
+                  f"{want_losses} (rel {rel:.2e}), update rel {upd:.2e}", flush=True)
+            if f64:
+                assert rel <= 1e-10 and upd <= 1e-8, (arch, engine, extra, rel, upd)
+            else:
+                assert rel <= 1e-4, (engine, extra, rel)
+                for k in keys:
+                    torch.testing.assert_close(got[k], want[k], rtol=2e-3, atol=1e-5)
+    striped = []
+    for exact in ("0", "1"):
+        os.environ["MPI4DL_HSTRIPE_EXACT"] = exact
+        with hstripe_gates():
+            loss, grads, stats, model = hstripe_run("cpu")
+            loss_d, grads_d, stats_d, _ = hstripe_run(dev, model.state_dict())
+        del os.environ["MPI4DL_HSTRIPE_EXACT"]
+        rg, rs = norm_rel(grads_d, grads), norm_rel(stats_d, stats)
+        print(f"engine checks: striped ResNet branch (C3), MPI4DL_HSTRIPE_EXACT={exact}: "
+              f"loss {loss_d:.7f} vs CPU {loss:.7f}, gradient rel {rg:.2e}, running "
+              f"statistics rel {rs:.2e}", flush=True)
+        assert abs(loss_d - loss) <= 1e-5 * abs(loss) and rg <= 1e-4 and rs <= 1e-4
+        striped.append(loss)
+    assert striped[0] != striped[1], "the branch was not striped"
+    print(f"engine checks: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -1417,10 +1607,10 @@ def main() -> int:
 
     # The dry runs (meta device, CPU only) in a worker process, meanwhile.
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
     try:
         t0 = time.perf_counter()
-        dry = pool.submit(all_dry_runs)
+        dry = [pool.submit(all_dry_runs), pool.submit(engine_dry_runs)]
         secs = _build.build_kernels(verbose=True)
         card = card_line()
         print(f"build: {secs:.1f} s on {card}", flush=True)
@@ -1428,7 +1618,7 @@ def main() -> int:
         check_flash_sass(_build.library_path("block_flash"))
         tot = phase_kernels()
         launches = phase_slice()
-        preds = dry.result()
+        preds = {**dry[0].result(), **dry[1].result()}
         print(f"dry runs: ready {time.perf_counter() - t0:.1f} s after the start",
               flush=True)
     finally:
@@ -1436,17 +1626,26 @@ def main() -> int:
     for name, seen in preds.items():
         print(f"dry run: {name}: K2 {seen.counts['halo_conv2d_stats']} K1 "
               f"{seen.counts['halo_conv2d']} launches a step", flush=True)
-    sp_tot = phase_sp_kernels(preds)
-    sp_launches = phase_sp_slice(preds)
-    phase_sp_checks()
-    pp_launches = phase_pp_slice(preds)
-    phase_pp_checks()
-    ldp_launches = phase_ldp_slice(preds)
-    phase_card_vs_cpu()
-    phase_kernels_ab()
-    k3, k3_bwd = phase_flash_kernels()
-    phase_ring()
-    k3_launches = phase_seq_slice()
+
+    def timed(fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    sp_tot = timed(phase_sp_kernels, preds)
+    sp_launches = timed(phase_sp_slice, preds)
+    timed(phase_sp_checks)
+    pp_launches = timed(phase_pp_slice, preds)
+    timed(phase_pp_checks)
+    ldp_launches = timed(phase_ldp_slice, preds)
+    timed(phase_card_vs_cpu)
+    timed(phase_kernels_ab)
+    gems_launches = timed(phase_gems_sppp_slices, preds)
+    timed(phase_engine_checks)
+    k3, k3_bwd = timed(phase_flash_kernels)
+    timed(phase_ring)
+    k3_launches = timed(phase_seq_slice)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"
@@ -1458,8 +1657,8 @@ def main() -> int:
                     if t[key]["launches"]})
         return out
 
-    print(f"launches: pipeline runs {pp_launches}, local-DP run {ldp_launches}",
-          flush=True)
+    print(f"launches: pipeline runs {pp_launches}, local-DP run {ldp_launches}, "
+          f"GEMS / SP x PP runs {gems_launches}", flush=True)
 
     entries = [
         dict(kernel_entry("halo_conv2d", SOURCE, K1_SRC,

@@ -1,5 +1,5 @@
-"""The runners' shared flow (counterpart of the ``lp`` and ``sp`` families
-of ``benchmarks/common.py``).
+"""The runners' shared flow (counterpart of the ``lp``, ``gems``, ``sp`` and
+``gems_sp`` families of ``benchmarks/common.py``).
 
 Parse the JAX package's flags, join the ``torchrun`` process group (gloo
 with ``--device cpu``, else NCCL with one card per rank), build the mesh
@@ -8,17 +8,25 @@ over the ranks (``mesh.build_process_mesh``: rank layout row-major over
 the same on every rank) and the family's step, then train on a synthetic
 global batch made from ``--seed`` (``--batch-size`` images per data
 replica, as in the JAX runner) and print one line per step and the
-``StepMeter`` summary (the first step is the warm-up).  The ``sp``
-family's last line also says whether the tile ranks' tails agree
-(``tail_agreement``).
+``StepMeter`` summary (the first step is the warm-up).  The ``sp`` and
+``gems_sp`` families' last line also says whether the tile ranks' tails
+(this stage's cells after the junction) agree (``tail_agreement``).
 
 - ``lp``: ``--split-size 1`` trains on one device, or DP with
   ``--data-parallel``; more stages run ``make_pipeline_train_step`` with
   one stage per rank (``--schedule gpipe|1f1b``, ``--parts``,
   ``--balance``), DP x PP with ``--data-parallel``.
+- ``gems``: ``make_gems_train_step`` on the mesh ``(data, stage)``, one
+  stage per rank, ``--times`` pairs of 2 x ``--parts`` micro-batches
+  (``--batch-size`` divisible by 2·times·parts), DP x GEMS with
+  ``--data-parallel``.  ``--enable-master-comm-opt`` is a no-op (one weight
+  set: the replicas cannot diverge) and says so.
 - ``sp``: one tile per rank, ``--data-parallel`` replicas of the grid,
-  ``--local-DP`` the ``batch_split`` junction's degree.  SP x PP
-  (``--split-size`` > 1) is ROADMAP A9.
+  ``--local-DP`` the ``batch_split`` junction's degree; with
+  ``--split-size`` > 1, SP x PP (the tail pipelined over that many stages,
+  ``--schedule``, ``--parts``).
+- ``gems_sp``: SP + GEMS, the tail's stages running GEMS's dual streams
+  (``--split-size`` ≥ 2, ``--times``, ``--parts``).
 
 Run in one process with more than one rank in the mesh, it raises: the
 one-process tile grid and stage chain are reached only by calling the
@@ -37,6 +45,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from mpi4dl_tpu_torch.cells import split_even
 from mpi4dl_tpu_torch.config import config_from_args, get_parser, resolve_pallas_conv
 from mpi4dl_tpu_torch.device import resolve_device
 from mpi4dl_tpu_torch.layer_ctx import spatial_levels_for
@@ -52,11 +61,16 @@ from mpi4dl_tpu_torch.utils.misc import StepMeter
 
 def resolve_spatial_until(cfg, n_cells: int, in_shape, say=print):
     """The junction cell: ``--spatial-until`` clamped to [1, n_cells - 1],
-    ``auto`` from the analytical placement ledger, None (unset) = every
-    cell but the head."""
+    ``auto`` from the analytical placement ledger; unset, every cell but
+    the head, or with ``--split-size`` S > 1 (SP x PP) the end of the
+    first ``--spatial-size`` of S even splits of the cells, at most S - 1
+    of them (``benchmarks/common.py:78-143``)."""
     su = cfg.spatial_until
     if su is None:
-        return n_cells - 1
+        if cfg.split_size <= 1:
+            return n_cells - 1
+        k = min(max(cfg.spatial_size, 1), cfg.split_size - 1)
+        return min(split_even(n_cells, cfg.split_size, cfg.balance)[k - 1][1], n_cells - 1)
     if su == "auto":
         shapes = cell_output_shapes(build_model(cfg, device="meta"), in_shape)
         itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
@@ -79,35 +93,57 @@ def _unported_flags(args):
 
 
 def _build(cfg, family: str, dev, mesh, say):
-    """(step, state, notes) of the family at ``cfg`` on this rank."""
+    """(step, state, notes, tail cells) of the family at ``cfg`` on this
+    rank; the tail cells are those whose replicas the tile ranks must agree
+    on (None outside the spatial families)."""
+    from mpi4dl_tpu_torch.parallel.gems import gems_local_stages, make_gems_train_step
     from mpi4dl_tpu_torch.parallel.partition import StagePartition
     from mpi4dl_tpu_torch.parallel.pipeline import (
         init_pipeline_state, make_pipeline_train_step,
     )
-    from mpi4dl_tpu_torch.parallel.stages import ProcessGroupStages
+    from mpi4dl_tpu_torch.parallel.sp_pipeline import (
+        SPPipeline, init_sp_pipeline_state, make_sp_gems_train_step,
+        make_sp_pipeline_train_step,
+    )
+    from mpi4dl_tpu_torch.parallel.stages import ProcessGroupStages, StageChain
 
     pallas = resolve_pallas_conv(cfg.pallas_conv)
     opt = Optimizer(cfg.optimizer, lr=cfg.lr, momentum=cfg.momentum)
     data = mesh.data if mesh is not None else None
     mdl = build_model(cfg, device=dev)
-    if family == "lp":
+    if family == "lp" and cfg.split_size <= 1:
+        step = make_train_step(mdl, opt, parts=cfg.parts,
+                               compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+                               pallas_conv=pallas, with_data_axis=data)
+        return step, TrainState.create(mdl, opt), {}, None
+
+    def stage_backend():
         if cfg.split_size <= 1:
-            step = make_train_step(mdl, opt, parts=cfg.parts,
-                                   compute_dtype=cfg.compute_dtype, remat=cfg.remat,
-                                   pallas_conv=pallas, with_data_axis=data)
-            return step, TrainState.create(mdl, opt), {}
+            return StageChain(1)  # one stage: this rank holds all of it
+        return ProcessGroupStages(cfg.split_size, mesh.stage_group)
+
+    notes = {"schedule": cfg.schedule}
+    if family in ("lp", "gems"):
+        groups = cfg.parts * (2 * cfg.times if family == "gems" else 1)
+        if cfg.batch_size % groups:
+            raise ValueError(f"--batch-size {cfg.batch_size} must divide into {groups} "
+                             "micro-batches")
         part = StagePartition.build(
-            mdl, cfg.split_size,
-            (cfg.batch_size // cfg.parts, cfg.image_size, cfg.image_size, 3),
+            mdl, max(cfg.split_size, 1),
+            (cfg.batch_size // groups, cfg.image_size, cfg.image_size, 3),
             balance=cfg.balance)
-        stages = ProcessGroupStages(cfg.split_size, mesh.stage_group)
-        part.release_others(stages.local_stages)
-        step = make_pipeline_train_step(
-            part, opt, stages, cfg.parts, compute_dtype=cfg.compute_dtype,
-            remat=cfg.remat, with_data_axis=data, schedule=cfg.schedule,
-            pallas_conv=pallas)
-        return step, init_pipeline_state(part, opt, stages), {
-            "stage": stages.stage, "ranges": part.ranges, "schedule": cfg.schedule}
+        stages = stage_backend()
+        kw = dict(compute_dtype=cfg.compute_dtype, remat=cfg.remat, with_data_axis=data,
+                  schedule=cfg.schedule, pallas_conv=pallas)
+        if family == "gems":
+            part.release_others(gems_local_stages(stages))
+            step = make_gems_train_step(part, opt, stages, cfg.parts, times=cfg.times, **kw)
+            notes["times"] = cfg.times
+        else:
+            part.release_others(stages.local_stages)
+            step = make_pipeline_train_step(part, opt, stages, cfg.parts, **kw)
+        notes.update(stage=stages.local_stages[0], ranges=part.ranges)
+        return step, init_pipeline_state(part, opt, stages), notes, None
     su = resolve_spatial_until(cfg, len(mdl.cells), mdl.in_shape, say)
     mdl.spatial_until = su
     (sp,) = spatial_levels_for(
@@ -117,12 +153,38 @@ def _build(cfg, family: str, dev, mesh, say):
         use_pallas_conv=pallas,
     )
     junction = "batch_split" if cfg.local_dp_lp > 1 else "gather"
-    step = make_spatial_train_step(
-        mdl, opt, sp, parts=cfg.parts, compute_dtype=cfg.compute_dtype,
-        spatial_until=su, remat=cfg.remat, junction=junction,
-        local_dp=cfg.local_dp_lp if junction == "batch_split" else None,
-        with_data_axis=data)
-    return step, TrainState.create(mdl, opt), {"spatial_until": su, "junction": junction}
+    local_dp = cfg.local_dp_lp if junction == "batch_split" else None
+    notes.update(spatial_until=su, junction=junction)
+    if family == "sp" and cfg.split_size <= 1:
+        step = make_spatial_train_step(
+            mdl, opt, sp, parts=cfg.parts, compute_dtype=cfg.compute_dtype,
+            spatial_until=su, remat=cfg.remat, junction=junction, local_dp=local_dp,
+            with_data_axis=data)
+        return step, TrainState.create(mdl, opt), notes, mdl.cells[su:]
+    if cfg.split_size < 2:
+        raise ValueError("the gems_sp family needs --split-size >= 2 (the tail's stages)")
+    gems = family == "gems_sp"
+    groups = cfg.parts * (2 * cfg.times if gems else 1)
+    if cfg.batch_size % groups:
+        raise ValueError(f"--batch-size {cfg.batch_size} must divide into {groups} "
+                         "micro-batches")
+    spp = SPPipeline.build(mdl, cfg.split_size, sp, cfg.batch_size // groups,
+                           junction=junction, balance=cfg.balance, local_dp=local_dp)
+    stages = stage_backend()
+    kw = dict(compute_dtype=cfg.compute_dtype, remat=cfg.remat, with_data_axis=data,
+              schedule=cfg.schedule)
+    if gems:
+        spp.tail_part.release_others(gems_local_stages(stages))
+        step = make_sp_gems_train_step(spp, opt, stages, cfg.parts, times=cfg.times, **kw)
+        notes["times"] = cfg.times
+    else:
+        spp.tail_part.release_others(stages.local_stages)
+        step = make_sp_pipeline_train_step(spp, opt, stages, cfg.parts, **kw)
+    s = stages.local_stages[0]
+    r0, r1 = spp.tail_part.ranges[s]
+    notes.update(stage=s, ranges=spp.tail_part.ranges)
+    return (step, init_sp_pipeline_state(spp, opt, stages), notes,
+            spp.tail_part.model.cells[r0:r1])
 
 
 def run(family: str, model: str, argv=None) -> dict:
@@ -140,18 +202,14 @@ def run(family: str, model: str, argv=None) -> dict:
     args = p.parse_args(argv)
     cfg = config_from_args(args)
     _unported_flags(args)
-    if family not in ("lp", "sp"):
-        raise NotImplementedError(f"the {family!r} family is not ported to "
-                                  "PyTorch yet (ROADMAP A8-A9)")
-    if family == "sp" and cfg.split_size > 1:
-        raise NotImplementedError("SP x PP (--split-size > 1 in the sp family) is "
-                                  "not ported to PyTorch yet (ROADMAP A9)")
-    if family == "lp":
+    if family not in ("lp", "gems", "sp", "gems_sp"):
+        raise ValueError(f"unknown family {family!r}")
+    if family in ("lp", "gems"):
         spec = MeshSpec(data=cfg.data_parallel, stage=max(cfg.split_size, 1))
     else:
         spec = MeshSpec.from_config(cfg)
         if spec.sph * spec.spw < 2:
-            raise ValueError("the sp runner needs --num-spatial-parts > 1 "
+            raise ValueError(f"the {family} runner needs --num-spatial-parts > 1 "
                              "(single device: python -m mpi4dl_tpu_torch)")
     dev = resolve_device(args.device)
     mesh, rank = None, 0
@@ -161,11 +219,16 @@ def run(family: str, model: str, argv=None) -> dict:
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     say = print if rank == 0 else (lambda *a, **k: None)
+    if cfg.enable_master_comm_opt:
+        say("note: --enable-master-comm-opt is a no-op here — the one-weight-set "
+            "GEMS redesign cannot diverge, so the reference's MASTER-OPT param/grad "
+            "exchange (train_spatial_master.py:229-455) has nothing to synchronize.",
+            flush=True)
     say(f"ranks: {spec.size} x {dev.type} "
         f"({torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}); "
         f"mesh data {spec.data} stage {spec.stage} tiles {spec.sph}x{spec.spw}",
         flush=True)
-    step, state, notes = _build(cfg, family, dev, mesh, say)
+    step, state, notes, tail = _build(cfg, family, dev, mesh, say)
     batch = cfg.batch_size * spec.data
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed + 1)
@@ -200,9 +263,8 @@ def run(family: str, model: str, argv=None) -> dict:
     out = {"images_per_sec": meter.images_per_sec(), "losses": losses,
            "stats": meter.stats(), "peak_bytes": peak,
            "launches": dict(halo_conv.LAUNCHES), "ranks": spec.size, **notes}
-    if family == "sp":
-        out.update(tail_agreement(state.model.cells[notes["spatial_until"]:],
-                                  mesh.tiles.group))
+    if tail is not None:
+        out.update(tail_agreement(tail, mesh.tiles.group))
     say(json.dumps(out), flush=True)
     return out
 

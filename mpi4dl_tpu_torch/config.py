@@ -3,10 +3,10 @@
 The parser keeps the JAX package's flag vocabulary (itself the reference's,
 ``src/torchgems/parser.py``) and its defaults.  The port runs the
 single-device engine, data parallelism, single-level spatial parallelism
-(D1 and D2, the ``gather`` and ``batch_split`` junctions) and the LP/PP
-pipelines (GPipe, 1F1B); a flag that asks for an engine not ported yet
-raises NotImplementedError naming its ROADMAP item instead of being
-ignored.
+(D1 and D2, the ``gather`` and ``batch_split`` junctions), the LP/PP
+pipelines (GPipe, 1F1B), GEMS (``--times``) and SP x PP / SP + GEMS; a
+flag that asks for an engine not ported yet raises NotImplementedError
+naming its ROADMAP item instead of being ignored.
 """
 
 from __future__ import annotations
@@ -89,9 +89,6 @@ class ParallelConfig:
             (self.spatial_size > 0 and len(set(self.num_spatial_parts)) > 1,
              "multi-level spatial parallelism (a --num-spatial-parts list)",
              "A11"),
-            (self.enable_gems or self.times > 1
-             or self.enable_master_comm_opt,
-             "GEMS (--enable-gems, --times)", "A8"),
             (self.app != 3 or self.checkpoint_dir is not None,
              "data loading and checkpoints (--app 1/2, --checkpoint-dir)",
              "A10"),

@@ -101,8 +101,9 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor], group: Optional[object]) ->
 def all_reduce_scaled_(tensors: Sequence[torch.Tensor], scales: Sequence[float],
                        group: Optional[object]) -> None:
     """``t ← scale · Σ_group t`` for each tensor, in place, in one fp32
-    all-reduce over one flat buffer whatever the tensors' dtypes (no
-    collective for ``None``, only the scales)."""
+    all-reduce over one flat buffer whatever the tensors' dtypes (float64
+    when one of them is float64; no collective for ``None``, only the
+    scales)."""
     if not tensors:
         return
     if group is None:
@@ -111,7 +112,9 @@ def all_reduce_scaled_(tensors: Sequence[torch.Tensor], scales: Sequence[float],
                 if s != 1.0:
                     t.mul_(s)
         return
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    wire = (torch.float64 if any(t.dtype == torch.float64 for t in tensors)
+            else torch.float32)
+    flat = torch.cat([t.detach().reshape(-1).to(wire) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     offset = 0
     with torch.no_grad():

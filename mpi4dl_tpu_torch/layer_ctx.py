@@ -56,6 +56,11 @@ class SpatialCtx:
     # Route stride-1 convs and [ReLU, Conv2d, BatchNorm] windows through the
     # hand-written halo-conv kernels (ops/halo_conv.py).
     use_pallas_conv: bool = False
+    # The axes are a one-device fiction (the H-striped layer run,
+    # ops/hstripe_conv.hstripe_layer_run): there are no tiles to talk to,
+    # so BatchNorm keeps each stripe's statistics and deposits them as they
+    # are (the run averages them over the stripes itself).
+    stat_local: bool = False
     tiles: Any = dataclasses.field(default=None, compare=False)
 
     @property

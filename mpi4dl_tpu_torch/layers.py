@@ -51,7 +51,7 @@ def _tiled(ctx: ApplyCtx):
     sp = ctx.spatial
     if sp is None or not sp.active:
         return None
-    if sp.tiles is None:
+    if sp.tiles is None and not sp.stat_local:
         raise ValueError("an active SpatialCtx needs its tile backend (tiles=)")
     return sp
 
@@ -201,7 +201,8 @@ def per_tile_view(x: torch.Tensor, sp, shards: int = 1):
     (``ApplyCtx.bn_shards``); else None."""
     if shards > 1:
         return x.reshape(shards, x.shape[0] // shards, *x.shape[1:])
-    if sp is None or not sp.active or sp.bn_cross_tile or not sp.tiles.folded:
+    if (sp is None or not sp.active or sp.bn_cross_tile or sp.stat_local
+            or not sp.tiles.folded):
         return None
     return sp.tiles.per_tile(x)
 
@@ -298,7 +299,7 @@ class BatchNorm(Layer):
         if ctx.bn_shards > 1:
             # Per-shard statistics: the running buffers take their mean.
             mean, var = mean.mean(dim=0), var.mean(dim=0)
-        elif sp is not None and not sp.bn_cross_tile:
+        elif sp is not None and not sp.bn_cross_tile and not sp.stat_local:
             # Per-tile statistics vary over the tiles; the running buffers
             # take their mean (layers.py:443-461).
             mean, var = sp.tiles.tile_mean(mean), sp.tiles.tile_mean(var)

@@ -6,10 +6,12 @@ avg-pool + FC head.  One definition serves single-device and spatial
 execution; under D2 each residual block's branch is one fused run
 (:func:`~mpi4dl_tpu_torch.ops.d2.maybe_run_d2`), its shortcut tapping the
 pre-exchange input.  The convs carry a bias, so no window is a K2 window;
-stride-1 3x3 convs take K1 when the kernel knob is on.  Left out: the
-single-device striped branches (``maybe_stripe_run``,
-``hstripe_layer_run``, ROADMAP A11), so tiles of 2^20 pixels or more with
-≤ 64 channels keep the plain path here where the JAX package stripes them.
+stride-1 3x3 convs take K1 when the kernel knob is on.  On one device a
+stride-1 v2 branch of 2^22 pixels or more with ≤ 64 channels runs H
+stripe by H stripe, as in the JAX package
+(:func:`~mpi4dl_tpu_torch.ops.hstripe_conv.hstripe_layer_run`: pad-once
+borders, per-stripe BatchNorm statistics).  Left out: the stripe-wise
+backward (``maybe_stripe_run``, ``--stripe-bwd``, ROADMAP A11).
 
 ``softmax_in_model`` reproduces the reference's softmax inside the model
 (followed by its cross-entropy, a double softmax).
@@ -28,6 +30,9 @@ from mpi4dl_tpu_torch.layers import (
     BatchNorm, Conv2d, Dense, Flatten, Layer, Pool2d, ReLU, Softmax,
 )
 from mpi4dl_tpu_torch.ops.d2 import maybe_run_d2
+from mpi4dl_tpu_torch.ops.hstripe_conv import (
+    hstripe_enabled, hstripe_layer_run, hstripe_run_eligible,
+)
 
 
 def _resnet_layer(in_f: int, out_f: int, kernel: int = 3, stride: int = 1,
@@ -85,6 +90,7 @@ class ResBlockV2(Cell):
     def __init__(self, in_f: int, f1: int, f2: int, stride: int,
                  first_block: bool, pre_activation: bool, name: str = "res_v2"):
         super().__init__(name)
+        self.stride = stride
         self.r1 = LayerCell(_resnet_layer(
             in_f, f1, stride=stride, activation=pre_activation,
             batch_norm=pre_activation, conv_first=False))
@@ -98,6 +104,10 @@ class ResBlockV2(Cell):
         branch = list(self.r1.layers) + list(self.r2.layers) + list(self.r3.layers)
         # D2: one halo exchange for the whole bottleneck.
         y = maybe_run_d2(branch, x, ctx)
+        if (y is None and self.stride == 1 and hstripe_enabled()
+                and hstripe_run_eligible(branch, x.shape, ctx)):
+            # One device, huge spatial: the branch H stripe by H stripe.
+            y = hstripe_layer_run(branch, x, ctx)
         if y is None:
             y = _apply_branch((self.r1, self.r2, self.r3), x, ctx)
         if self.r4 is not None:

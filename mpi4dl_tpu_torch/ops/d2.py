@@ -51,7 +51,8 @@ def layer_d2_geometry(layer) -> Optional[Tuple[int, int, int, int]]:
     if isinstance(layer, (Conv2d, Pool2d)):
         _, _, sh, sw, ph, pw = layer._geometry()
         return (ph, pw, sh, sw)
-    if isinstance(layer, (BatchNorm, ReLU, Identity, Softmax)):
+    if isinstance(layer, (BatchNorm, ReLU, Identity, Softmax)) or getattr(
+            layer, "d2_identity", False):
         return (0, 0, 1, 1)
     return None
 
@@ -121,9 +122,10 @@ def _apply_fused_triple(cv: Conv2d, bn: BatchNorm, x, ctx: ApplyCtx, sub,
     mh2 = (mh - ph) if sh_ else mh
     mw2 = (mw - pw) if sw_ else mw
     win = (mh2, h_out - mh2, mw2, w_out - mw2)
-    per_tile = per_tile_view(x, sub)
+    per_tile = per_tile_view(x, sub, ctx.bn_shards)
     if per_tile is not None:
-        # Per-tile statistics of a tile-folded batch: one launch per tile.
+        # Per-tile (or per-shard) statistics of a folded batch: one launch
+        # per tile.
         outs = [fused_relu_conv_bn_t(t, w, win) for t in per_tile]
         y = torch.cat([o[0] for o in outs])
         s = torch.stack([o[1] for o in outs])

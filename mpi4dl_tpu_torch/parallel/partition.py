@@ -67,7 +67,7 @@ def numel(shape: ActShape) -> int:
 
 
 @torch.no_grad()
-def _probe(cell, x, ctx):
+def probe_cell(cell, x, ctx):
     """``cell(x, ctx)`` on the meta device, whatever device the cell's
     weights are on (no copy, no memory)."""
     tensors = {**dict(cell.named_parameters()), **dict(cell.named_buffers())}
@@ -100,19 +100,22 @@ class StagePartition:
     def build(cls, model: CellModel, split_size: int, microbatch_shape,
               balance: Optional[Sequence[int]] = None) -> "StagePartition":
         """Cell ranges from ``split_even``/``balance``; boundary shapes from
-        one forward of a micro-batch of ``microbatch_shape`` on the meta
-        device (the reference's two-phase shape probe,
+        one forward of a micro-batch of ``microbatch_shape`` (a tuple of
+        shapes for a tuple activation, as an SP x PP tail takes) on the
+        meta device (the reference's two-phase shape probe,
         ``mp_pipeline.py:126-168``)."""
         ranges = split_even(len(model.cells), split_size, balance)
         if any(r1 <= r0 for r0, r1 in ranges):
             raise ValueError(f"{len(model.cells)} cells cannot fill {split_size} stages")
-        x = torch.empty(tuple(microbatch_shape), device="meta")
+        shape = tuple(microbatch_shape)
+        x = (tuple(torch.empty(s, device="meta") for s in shape)
+             if _is_tuple_shape(shape) else torch.empty(shape, device="meta"))
         ctx = ApplyCtx(train=False)
         shapes = []
         for r0, r1 in ranges:
             shapes.append(_shape_of(x))
             for i in range(r0, r1):
-                x = _probe(model.cells[i], x, ctx)
+                x = probe_cell(model.cells[i], x, ctx)
         shapes.append(_shape_of(x))
         return cls(model, ranges, shapes)
 

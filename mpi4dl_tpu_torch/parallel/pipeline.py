@@ -59,16 +59,10 @@ def make_pipeline_train_step(part: StagePartition, optimizer: Optimizer, stages,
     :class:`~mpi4dl_tpu_torch.mesh.DataAxis`): DP x PP."""
     if schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown schedule {schedule!r}; use 'gpipe' or '1f1b'")
-    ctx = ApplyCtx(train=True,
-                   spatial=SpatialCtx(use_pallas_conv=True) if pallas_conv else None)
+    ctx = stage_ctx(pallas_conv)
     params = local_params(part, stages)
     data = with_data_axis
     seed = loss_scale / parts
-    metric_group = None
-    if data is not None:
-        metric_group = data.with_stages if stages.group is not None else data.group
-    elif stages.group is not None:
-        metric_group = stages.group
 
     def step(state: TrainState, x, labels):
         x, labels = data_shard(x, data), data_shard(labels, data)
@@ -82,22 +76,44 @@ def make_pipeline_train_step(part: StagePartition, optimizer: Optimizer, stages,
                 res = gpipe(part, stages, ctx, x_parts, y_parts, seed=seed,
                             remat=remat)
         grads = [g for s in stages.local_stages for g in res.grads[s]]
-        stats = {bn: (m / parts, v / parts) for bn, (m, v) in res.stats.items()}
-        tensors = grads + [t for mv in stats.values() for t in mv]
-        inv = 1.0 / data.size if data is not None else 1.0
-        with scope("grad_reduce"):
-            all_reduce_scaled_(tensors, [inv / loss_scale] * len(grads)
-                               + [inv] * (len(tensors) - len(grads)),
-                               None if data is None else data.group)
-        with scope("optimizer_update"):
-            state.opt_state = optimizer.update(params, grads, state.opt_state)
-        merge_stat_updates(stats)
-        state.step += 1
-        # The loss lives on the last stage: a sum over the stages (the
-        # others hold zero) and a mean over the replicas, outside autograd.
-        metrics = [res.loss / parts, res.accuracy / parts]
-        with scope("loss_reduce"):
-            all_reduce_scaled_(metrics, [inv, inv], metric_group)
-        return state, {"loss": metrics[0], "accuracy": metrics[1]}
+        return finish_step(state, optimizer, params, grads, res.stats, res.loss,
+                           res.accuracy, parts, loss_scale, stages, data)
 
     return step
+
+
+def stage_ctx(pallas_conv: bool) -> ApplyCtx:
+    """The stages' train-mode context; ``pallas_conv`` routes their
+    stride-1 convs and [ReLU, Conv2d, BatchNorm] windows through K1/K2."""
+    return ApplyCtx(train=True,
+                    spatial=SpatialCtx(use_pallas_conv=True) if pallas_conv else None)
+
+
+def finish_step(state: TrainState, optimizer: Optimizer, params, grads, stats, loss,
+                acc, denom: int, loss_scale: float, stages, data):
+    """The end of a pipeline (or GEMS) step: the running-statistics sums
+    and the metrics divided by the ``denom`` micro-batches they were summed
+    over; gradients (unscaled) and statistics averaged over the data
+    replicas in one all-reduce; the update; the loss, which lives on the
+    last stage, summed over the stages (the others hold zero) and averaged
+    over the replicas, outside autograd."""
+    stats = {bn: (m / denom, v / denom) for bn, (m, v) in stats.items()}
+    tensors = grads + [t for mv in stats.values() for t in mv]
+    inv = 1.0 / data.size if data is not None else 1.0
+    with scope("grad_reduce"):
+        all_reduce_scaled_(tensors, [inv / loss_scale] * len(grads)
+                           + [inv] * (len(tensors) - len(grads)),
+                           None if data is None else data.group)
+    with scope("optimizer_update"):
+        state.opt_state = optimizer.update(params, grads, state.opt_state)
+    merge_stat_updates(stats)
+    state.step += 1
+    metric_group = None
+    if data is not None:
+        metric_group = data.with_stages if stages.group is not None else data.group
+    elif stages.group is not None:
+        metric_group = stages.group
+    metrics = [loss / denom, acc / denom]
+    with scope("loss_reduce"):
+        all_reduce_scaled_(metrics, [inv, inv], metric_group)
+    return state, {"loss": metrics[0], "accuracy": metrics[1]}

@@ -6,8 +6,8 @@ step updates the model's parameters and running statistics in place.
 With a data axis it trains on its replica's slice of the batch (DP).
 :func:`make_spatial_train_step` is the spatial-parallel step (one level,
 ``gather`` or ``batch_split`` junction, with or without a data axis); the
-pipeline steps are ``parallel/pipeline.py``; GEMS and SP x PP are later
-slices (ROADMAP A8-A9).
+pipeline steps are ``parallel/pipeline.py``, GEMS ``parallel/gems.py`` and
+SP x PP / SP + GEMS ``parallel/sp_pipeline.py``.
 """
 
 from __future__ import annotations
@@ -29,8 +29,10 @@ from mpi4dl_tpu_torch.parallel.spatial import (
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy with integer labels, in fp32."""
-    return F.nll_loss(torch.log_softmax(logits.float(), dim=-1), labels.long())
+    """Mean softmax cross-entropy with integer labels, in fp32 (float64 for
+    float64 logits)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    return F.nll_loss(torch.log_softmax(logits, dim=-1), labels.long())
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -14,15 +14,22 @@ same weights and batch:
   replayed on its recorded input on both devices.  A unit's VJP is
   continuous in its input, where the fp32 step's whole gradient is not
   (AmoebaNet routes it through max-pool ties that fp32 rounding flips).
+
+Two more hold engines against the single-card step on one device:
+:func:`engine_run` trains GEMS on the stage chain, or SP x PP / SP + GEMS
+on the tile grid and stage chain, or the single-card step accumulated
+over the same micro-batches; :func:`hstripe_run` is the striped ResNet
+branch's step with its size gates lowered, for card against CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 
+
 import torch
-import torch.nn.functional as F
 
 
 def norm_rel(got, ref) -> float:
@@ -63,10 +70,7 @@ def sp_step_run(dev, state_dict, d2, local_dp=None, eps=0.0, model=None,
     logits = apply_spatial_model(model, sp.tiles.scatter(x.to(dev)), ctx, spatial_until=5,
                                  junction="batch_split" if local_dp else "gather",
                                  local_dp=local_dp)
-    if dtype == torch.float64:  # cross_entropy computes in fp32
-        loss = F.nll_loss(torch.log_softmax(logits, dim=-1), y.to(dev))
-    else:
-        loss = cross_entropy(logits, y.to(dev))
+    loss = cross_entropy(logits, y.to(dev))
     return float(loss), torch.autograd.grad(loss, list(model.parameters())), model
 
 
@@ -122,3 +126,104 @@ def replay_units(model, run, dev):
         worst_g = max([worst_g] + [norm_rel([b], [a]) for a, b in zip(g0, g1)
                                    if a is not None and float(a.abs().max()) > 0])
     return len(calls), worst_y, worst_g
+
+
+def engine_run(dev, engine, *, arch="resnet", image=32, batch=4, micro=1, split=2,
+               times=1, parts=1, schedule="gpipe", dtype=torch.float32, pallas=False,
+               spatial_until=2, steps=2):
+    """``steps`` SGD steps (lr 0.01) from seed-0 weights on a seeded batch of
+    ``batch`` images, ``micro`` a micro-batch: ``engine`` ``"single"`` (the
+    single-card step accumulated over ``batch // micro`` micro-batches),
+    ``"gems"`` (``split`` stages on the chain, ``times`` x 2 x ``parts``),
+    ``"sp_pp"`` or ``"sp_gems"`` (a 1x2 grid, D1, the gather junction after
+    cell ``spatial_until``, ``split`` tail stages).  ResNet-11 v2, or
+    AmoebaNet-D(3, 32); ``dtype`` float64 runs the model in float64 (the
+    kernels off).  Returns (losses, state dict on the host)."""
+    from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
+    from mpi4dl_tpu_torch.models import amoebanetd, get_resnet_v2
+    from mpi4dl_tpu_torch.parallel.gems import make_gems_train_step
+    from mpi4dl_tpu_torch.parallel.partition import StagePartition
+    from mpi4dl_tpu_torch.parallel.pipeline import init_pipeline_state
+    from mpi4dl_tpu_torch.parallel.sp_pipeline import (
+        SPPipeline, init_sp_pipeline_state, make_sp_gems_train_step,
+        make_sp_pipeline_train_step,
+    )
+    from mpi4dl_tpu_torch.parallel.stages import StageChain
+    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_train_step
+
+    shape = (batch, image, image, 3)
+    if arch == "resnet":
+        model = get_resnet_v2(shape, 11, 10, device="cpu", seed=0)
+    else:
+        model = amoebanetd(shape, num_classes=10, num_layers=3, num_filters=32,
+                           device="cpu")
+    model.to(device=dev, dtype=dtype)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(shape, generator=g).to(dev, dtype)
+    y = (torch.arange(batch) * 3 % 10).to(dev)
+    opt = Optimizer("sgd", lr=0.01)
+    kw = dict(compute_dtype=dtype, remat=False, schedule=schedule)
+    if engine == "single":
+        step = make_train_step(model, opt, parts=batch // micro, compute_dtype=dtype,
+                               pallas_conv=pallas)
+        state = TrainState.create(model, opt)
+    elif engine == "gems":
+        part = StagePartition.build(model, split, (micro, *shape[1:]))
+        step = make_gems_train_step(part, opt, StageChain(split), parts, times=times,
+                                    pallas_conv=pallas, **kw)
+        state = init_pipeline_state(part, opt, StageChain(split))
+    else:
+        model.spatial_until = spatial_until
+        sp = spatial_ctx_for("vertical", 2, tiles=TileGrid(1, 2), use_pallas_conv=pallas)
+        spp = SPPipeline.build(model, split, sp, micro, junction="gather")
+        if engine == "sp_gems":
+            step = make_sp_gems_train_step(spp, opt, StageChain(split), parts,
+                                           times=times, **kw)
+        else:
+            step = make_sp_pipeline_train_step(spp, opt, StageChain(split), parts, **kw)
+        state = init_sp_pipeline_state(spp, opt, StageChain(split))
+    losses = [float(step(state, x, y)[1]["loss"]) for _ in range(steps)]
+    return losses, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+@contextlib.contextmanager
+def hstripe_gates(min_pixels=1, budget=40000):
+    """Lower the striped run's size gates (``ops/hstripe_conv.py``) so that
+    a small input is striped, as the CPU tests do (the default budget cuts
+    :func:`hstripe_run`'s 32² input into 4 stripes)."""
+    from mpi4dl_tpu_torch.ops import hstripe_conv as hc
+
+    old = hc._RUN_MIN_PIXELS, hc._RUN_STRIPE_BUDGET
+    hc._RUN_MIN_PIXELS, hc._RUN_STRIPE_BUDGET = min_pixels, budget
+    try:
+        yield
+    finally:
+        hc._RUN_MIN_PIXELS, hc._RUN_STRIPE_BUDGET = old
+
+
+def hstripe_run(dev, state_dict=None, size=32):
+    """A striped v2 bottleneck block (16 → 8 → 16 channels, stride 1) and
+    a global-pool head on a seeded batch of 2 at ``size``², in train mode:
+    (loss, gradients, running statistics, model).  Call it under
+    :func:`hstripe_gates` to stripe."""
+    from mpi4dl_tpu_torch.cells import CellModel, LayerCell
+    from mpi4dl_tpu_torch.layer_ctx import ApplyCtx
+    from mpi4dl_tpu_torch.layers import Dense, GlobalAvgPool
+    from mpi4dl_tpu_torch.models.resnet import ResBlockV2
+    from mpi4dl_tpu_torch.train import cross_entropy
+
+    shape = (2, size, size, 16)
+    model = CellModel([ResBlockV2(16, 8, 16, 1, first_block=False, pre_activation=True),
+                       LayerCell([GlobalAvgPool(), Dense(16, 10)], name="head")], shape, 10)
+    if state_dict is None:
+        model.reset_parameters(torch.Generator().manual_seed(0))
+    else:
+        model.load_state_dict(state_dict)
+    model.to(dev)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(6)).to(dev)
+    ctx = ApplyCtx(train=True, bn_sink={})
+    loss = cross_entropy(model(x, ctx), torch.tensor([2, 5], device=dev))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    stats = [t for mv in ctx.bn_sink.values() for t in mv]
+    return float(loss.detach()), grads, stats, model

@@ -494,6 +494,112 @@ def test_sp_step_launches_what_the_dispatch_predicts(card, arch, image, depth):
     assert seen.counts["halo_conv2d"] > 0
 
 
+# GEMS, SP x PP and SP + GEMS, and the striped ResNet branch (C3).
+
+ENGINE_CASES = [("gems", dict(split=s, parts=2, schedule=sch), 1)
+                for s in (4, 3) for sch in ("gpipe", "1f1b")] + [
+    (e, dict(parts=p, schedule=sch), 2)
+    for e, p in (("sp_pp", 2), ("sp_gems", 1)) for sch in ("gpipe", "1f1b")]
+
+
+@pytest.mark.parametrize("engine,extra,micro", ENGINE_CASES)
+def test_engine_on_card_matches_the_single_card_step(card, engine, extra, micro):
+    """ResNet-11 v2 32², fp32, kernels on, two steps on the card against the
+    single-card step accumulated over the same micro-batches: losses rtol
+    1e-4, parameters rtol 2e-3 / atol 1e-5 (the JAX GEMS / SP tests')."""
+    from mpi4dl_tpu_torch.utils.devcheck import engine_run
+
+    losses, got = engine_run(card, engine, micro=micro, pallas=True, **extra)
+    want_losses, want = engine_run(card, "single", micro=micro, pallas=True)
+    for a, b in zip(losses, want_losses):
+        assert abs(a - b) <= 1e-4 * abs(b), (losses, want_losses)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=2e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("engine,extra,micro", ENGINE_CASES[::2])
+def test_engine_in_float64_on_card_matches_the_single_card_step(card, engine, extra, micro):
+    """AmoebaNet-D(3, 32) 128², float64, kernels off (no max-pool tie
+    flips): losses rtol 1e-10, the updates within 1e-8 (norm-relative)."""
+    from mpi4dl_tpu_torch.utils.devcheck import engine_run
+
+    kw = dict(arch="amoebanet", image=128, spatial_until=5, dtype=torch.float64)
+    init = engine_run("cpu", "single", steps=0, **kw)[1]
+    losses, got = engine_run(card, engine, micro=micro, **extra, **kw)
+    want_losses, want = engine_run(card, "single", micro=micro, **kw)
+    for a, b in zip(losses, want_losses):
+        assert abs(a - b) <= 1e-10 * abs(b), (losses, want_losses)
+    keys = [k for k in init if init[k].is_floating_point()]
+    assert norm_rel([got[k] - init[k] for k in keys],
+                    [want[k] - init[k] for k in keys]) <= 1e-8
+
+
+def test_gems_and_sp_pipeline_launch_what_the_dispatch_predicts(card):
+    """AmoebaNet-D(3, 64) 256², bf16, kernels on: the GEMS chain (4 stages,
+    both schedules) and the SP x PP grid (2x2, D2, 2 stages) launch exactly
+    the K1/K2 calls of their dry runs."""
+    import warnings
+
+    from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
+    from mpi4dl_tpu_torch.models import amoebanetd
+    from mpi4dl_tpu_torch.parallel.gems import make_gems_train_step
+    from mpi4dl_tpu_torch.parallel.partition import StagePartition
+    from mpi4dl_tpu_torch.parallel.pipeline import init_pipeline_state
+    from mpi4dl_tpu_torch.parallel.sp_pipeline import (
+        SPPipeline, init_sp_pipeline_state, make_sp_pipeline_train_step,
+    )
+    from mpi4dl_tpu_torch.parallel.stages import StageChain
+    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
+    from mpi4dl_tpu_torch.train import Optimizer
+
+    shape = (4, 256, 256, 3)
+
+    def parts(dev, which):
+        model = amoebanetd(shape, num_classes=10, num_layers=3, num_filters=64, device=dev)
+        opt = Optimizer("sgd", lr=0.01)
+        if which == "sp_pp":
+            model.spatial_until = 5
+            sp = spatial_ctx_for("square", 4, tiles=TileGrid(2, 2), d2_mode=True,
+                                 use_pallas_conv=True)
+            spp = SPPipeline.build(model, 2, sp, 2, junction="gather")
+            return (make_sp_pipeline_train_step(spp, opt, StageChain(2), 2,
+                                                compute_dtype=torch.bfloat16),
+                    init_sp_pipeline_state(spp, opt, StageChain(2)))
+        part = StagePartition.build(model, 4, (1, *shape[1:]))
+        return (make_gems_train_step(part, opt, StageChain(4), 2, schedule=which,
+                                     compute_dtype=torch.bfloat16, pallas_conv=True),
+                init_pipeline_state(part, opt, StageChain(4)))
+
+    warnings.simplefilter("ignore")
+    meta = torch.device("meta")
+    for which in ("gpipe", "1f1b", "sp_pp"):
+        step, state = parts(meta, which)
+        with hc.count_dispatches() as seen:
+            step(state, torch.zeros(shape, device=meta),
+                 torch.zeros((4,), dtype=torch.long, device=meta))
+        step, state = parts(card, which)
+        hc.reset_launch_counts()
+        _, m = step(state, torch.randn(shape, device=card),
+                    torch.arange(4, device=card))
+        assert math.isfinite(float(m["loss"]))
+        assert dict(hc.LAUNCHES) == seen.counts and seen.counts["halo_conv2d"] > 0, which
+
+
+@pytest.mark.parametrize("exact", ["0", "1"])
+def test_striped_resnet_branch_on_card_matches_cpu(card, monkeypatch, exact):
+    """C3: the striped v2 branch (gates lowered) on the card against the
+    CPU: loss rtol 1e-5, gradients and running statistics within 1e-4
+    (norm-relative)."""
+    from mpi4dl_tpu_torch.utils.devcheck import hstripe_gates, hstripe_run
+
+    monkeypatch.setenv("MPI4DL_HSTRIPE_EXACT", exact)
+    with hstripe_gates():
+        loss, grads, stats, model = hstripe_run("cpu")
+        loss_d, grads_d, stats_d, _ = hstripe_run(card, model.state_dict())
+    assert abs(loss_d - loss) <= 1e-5 * abs(loss)
+    assert norm_rel(grads_d, grads) <= 1e-4 and norm_rel(stats_d, stats) <= 1e-4
+
+
 # ---------------------------------------------------------------------------
 # K3, the block-flash attention kernel.
 # ---------------------------------------------------------------------------

@@ -109,7 +109,7 @@ def test_main_runs_on_cpu_when_asked(capsys):
 
 
 # Items ported since the flags were first refused: their flags now parse.
-PORTED = {"A5", "A6", "A7"}
+PORTED = {"A5", "A6", "A7", "A8"}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -128,10 +128,12 @@ PORTED = {"A5", "A6", "A7"}
 ])
 def test_unported_flags_raise(flags, item):
     """A flag of an engine not ported yet raises and names its ROADMAP
-    item; the flags of the ported engines (A5-A7: spatial parallelism, the
-    data axis and the pipelines) parse."""
+    item; the flags of the ported engines (A5-A8: spatial parallelism, the
+    data axis, the pipelines and GEMS) parse."""
     if item in PORTED:
         cfg = config_from_args(get_parser().parse_args(flags))
+        assert cfg.enable_gems == ("--enable-gems" in flags)
+        assert cfg.times == (2 if "--times" in flags else 1)
         assert cfg.num_spatial_parts == (4,)
         assert cfg.spatial_until in (None, 3) and cfg.halo_d2 == ("--halo-d2" in flags)
         assert cfg.split_size == (2 if "--split-size" in flags else 1)
@@ -156,7 +158,8 @@ def test_resnet_is_refused_by_name():
 
 def test_sp_runner_needs_its_ranks():
     """The runners never fall back to the one-process grid or stage chain:
-    without the ranks of the mesh they raise; SP x PP is refused by name."""
+    without the ranks of the mesh they raise (SP x PP, GEMS and SP + GEMS
+    too)."""
     from mpi4dl_tpu_torch.benchmarks.common import run
 
     with pytest.raises(RuntimeError, match="torchrun"):
@@ -165,10 +168,14 @@ def test_sp_runner_needs_its_ranks():
         run("sp", "resnet", ["--device", "cpu", "--telemetry-dir", "t"])
     with pytest.raises(RuntimeError, match="torchrun"):
         run("sp", "resnet", ["--device", "cpu", "--local-DP", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         run("sp", "resnet", ["--device", "cpu", "--split-size", "2"])
     with pytest.raises(RuntimeError, match="torchrun"):
         run("lp", "resnet", ["--device", "cpu", "--split-size", "2"])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        run("gems", "resnet", ["--device", "cpu", "--split-size", "2"])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        run("gems_sp", "resnet", ["--device", "cpu", "--split-size", "2"])
 
 
 def test_sp_runner_trains_on_four_gloo_ranks():
@@ -212,3 +219,39 @@ def test_lp_runner_trains_on_four_gloo_ranks(flags):
     assert summary["ranks"] == 4 and summary["schedule"] == flags[-1]
     losses = summary["losses"]
     assert len(losses) == 3 and losses[2] < losses[0]
+
+
+@pytest.mark.parametrize("family,module,flags", [
+    ("gems", "gems_master_model.benchmark_resnet_gems_master",
+     ["--split-size", "4", "--parts", "1", "--batch-size", "2"]),
+    ("gems", "gems_master_model.benchmark_resnet_gems_master",
+     ["--split-size", "2", "--data-parallel", "2", "--parts", "2", "--batch-size", "4",
+      "--schedule", "1f1b", "--enable-master-comm-opt"]),
+    ("gems_sp", "gems_master_with_spatial_parallelism.benchmark_resnet_gems_master_with_sp",
+     ["--num-spatial-parts", "2", "--slice-method", "vertical", "--split-size", "2",
+      "--spatial-until", "2", "--parts", "1", "--batch-size", "4"]),
+    ("sp", "spatial_parallelism.benchmark_resnet_sp",
+     ["--num-spatial-parts", "2", "--slice-method", "vertical", "--split-size", "2",
+      "--spatial-until", "2", "--parts", "2", "--batch-size", "4", "--schedule", "1f1b"]),
+])
+def test_gems_and_sp_pipeline_runners_train_on_four_gloo_ranks(family, module, flags):
+    """The ``gems`` runner (one stage a rank; DP2 x GEMS2 under 1F1B), the
+    ``gems_sp`` runner and the ``sp`` runner with ``--split-size 2`` (stage
+    2 x 2 tiles) under torchrun on four gloo ranks: the losses fall, and
+    under SP the tile ranks hold the same tail."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m", f"mpi4dl_tpu_torch.benchmarks.{module}",
+           "--device", "cpu", "--image-size", "32", "--num-layers", "1",
+           "--steps-per-epoch", "3", "--lr", "0.01", *flags]
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    summary = json.loads(lines[-1])
+    assert summary["ranks"] == 4
+    assert ("--enable-master-comm-opt" in flags) == any("is a no-op" in l for l in lines)
+    losses = summary["losses"]
+    assert len(losses) == 3 and losses[2] < losses[0]
+    if family != "gems":
+        assert summary["tail_tensors"] > 0 and summary["tail_differing"] == 0
