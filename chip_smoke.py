@@ -134,16 +134,43 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    (C3; ``utils/devcheck.hstripe_run`` with its gates lowered), card
    against CPU, per-stripe and exact statistics: loss rtol 1e-5,
    gradients and running statistics within 1e-4.
-17. The kernels' JSON line, the card line, and last the result line.  K1's
+17. Multi-level SP slices: AmoebaNet-D(18, 416), bf16 over fp32 params,
+   SGD lr 1e-3, halo-D2, kernels on, remat off, the levels of the runners'
+   rule at ``--num-spatial-parts 4,2 --split-size 3 --spatial-size 2``
+   (cells [0, 8) on the 2x2 grid, [8, 16) on its (1, 2) level, the gather
+   junction at cell 16): the SP step at 2048² bs1 and SP x PP at 1024² bs6
+   (2 micro-batches, the tail over 3 stages of the chain, GPipe), 1 warm-up
+   and 3 timed steps each with finite losses and each step's K1/K2
+   launches equal to its dry run's; img/s, ms a step, peak.
+18. Multi-level checks at reduced depth (``utils/devcheck.engine_run``):
+   the step with square 4,2 and degenerate vertical 2,1 levels and SP x PP
+   with square 4,2, against the single-card step at
+   ``tests/test_multilevel.py``'s bounds (losses rtol 1e-4, parameters
+   rtol 2e-3 / atol 1e-5): ResNet-11 v2 in fp32 with the kernels on (the
+   single card taking the library conv from the first degenerate level's
+   cells on) and AmoebaNet-D(3, 32) in float64 with them off; in float64
+   the card against the CPU (losses rtol 1e-10, updates within 1e-8).  The
+   single card's own kernels-on against kernels-off gap, and the square
+   chain against a single card with the kernels on the same cells, are
+   printed beside them.
+19. Memory levers, each A/B inside this call: the remat levels (none,
+   cell, sqrt, fine) of AmoebaNet-D(18, 416) 2048² on one card; the SP
+   2048² grid with ``MPI4DL_STRIPE_BWD`` 0 / 1 / 0 / 1; and the JAX
+   package's two TPU conv routes, which no layer of the port dispatches,
+   against the library conv: ``hstripe_conv2d`` forward and backward at
+   the convs of ResNet-110 v2 2048² that JAX's gate would stripe, the
+   phase dx's backward at AmoebaNet's 1024² strided convs (device ms and
+   the memory each allocates).  Recorded, not asserted.
+20. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
    each path (single-card AmoebaNet, SP AmoebaNet, SP ResNet, the GPipe
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
-   GEMS steps).
+   GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-16 run between phases 3 and 4, each printing its seconds.  The
-dry runs (meta device, CPU only) run in two worker processes from the
+Phases 7-19 run between phases 3 and 4, each printing its seconds.  The
+dry runs (meta device, CPU only) run in three worker processes from the
 start, beside phases 1-3.
 """
 
@@ -1571,6 +1598,362 @@ def phase_engine_checks():
     print(f"engine checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Multi-level SP: AmoebaNet-D(18, 416), the levels of the runners' rule at
+# `--num-spatial-parts 4,2 --split-size 3 --spatial-size 2` (cells [0, 8) on the
+# 2x2 grid, [8, 16) on the (1, 2) level of rep (2, 1), the tail from cell 16):
+# the SP step at 2048² bs1, and SP x PP at 1024² with the tail over 3 stages of
+# the chain, bs6 in 2 micro-batches (the batch must divide over the 3 stage
+# chunks in both packages, so the issue's bs4 cannot run).
+ML_PATH, MLPP_PATH = "amoebanet_2048_sp_multilevel", "amoebanet_1024_sp_pp_multilevel"
+ML_SPLIT, MLPP_BATCH, MLPP_PARTS = 3, 6, 2
+
+
+def ml_levels(n_cells, tiles, pallas=True):
+    """The runners' level chain (``benchmarks/common.spatial_levels``) at
+    ``--num-spatial-parts 4,2 --split-size 3 --spatial-size 2``, square,
+    halo-D2."""
+    from mpi4dl_tpu_torch.benchmarks.common import spatial_levels
+    from mpi4dl_tpu_torch.config import ParallelConfig
+
+    cfg = ParallelConfig(model="amoebanet", split_size=ML_SPLIT, spatial_size=2,
+                         num_spatial_parts=(4, 2), slice_method="square", halo_d2=True,
+                         pallas_conv=pallas)
+    return spatial_levels(cfg, n_cells, None, tiles, say=lambda *a, **k: None)
+
+
+def ml_parts(dev, image=2048, depth=18, batch=1, dtype=None, pallas=True):
+    """(model, step, state) of the multi-level SP step on the one-process
+    2x2 grid: 1000 classes, SGD lr 1e-3, remat off, bf16 unless ``dtype``."""
+    import torch
+
+    from mpi4dl_tpu_torch.models import amoebanetd
+    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_spatial_train_step
+
+    model = amoebanetd((batch, image, image, 3), num_classes=1000, num_layers=depth,
+                       num_filters=416, device=dev, seed=0)
+    levels = ml_levels(len(model.cells), TileGrid(2, 2), pallas)
+    opt = Optimizer("sgd", lr=1e-3)
+    step = make_spatial_train_step(model, opt, levels[0][1], levels=levels,
+                                   compute_dtype=dtype or torch.bfloat16)
+    return model, step, TrainState.create(model, opt)
+
+
+def mlpp_parts(dev):
+    """(model, step, state) of multi-level SP x PP, GPipe, on the grid and
+    a chain of ``ML_SPLIT`` tail stages."""
+    import torch
+
+    from mpi4dl_tpu_torch.models import amoebanetd
+    from mpi4dl_tpu_torch.parallel.sp_pipeline import (
+        SPPipeline, init_sp_pipeline_state, make_sp_pipeline_train_step,
+    )
+    from mpi4dl_tpu_torch.parallel.stages import StageChain
+    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
+    from mpi4dl_tpu_torch.train import Optimizer
+
+    model = amoebanetd((MLPP_BATCH, 1024, 1024, 3), num_classes=1000, num_layers=18,
+                       num_filters=416, device=dev, seed=0)
+    levels = ml_levels(len(model.cells), TileGrid(2, 2))
+    model.spatial_until = levels[-1][0]
+    spp = SPPipeline.build(model, ML_SPLIT, levels[0][1], MLPP_BATCH // MLPP_PARTS,
+                           junction="gather", levels=levels)
+    opt = Optimizer("sgd", lr=1e-3)
+    chain = StageChain(ML_SPLIT)
+    step = make_sp_pipeline_train_step(spp, opt, chain, MLPP_PARTS,
+                                       compute_dtype=torch.bfloat16, remat=False)
+    return model, step, init_sp_pipeline_state(spp, opt, chain)
+
+
+def ml_dry_runs():
+    """The multi-level paths' dry runs, in a third worker."""
+    return {ML_PATH: dry_run(ml_parts, (1, 2048, 2048, 3)),
+            MLPP_PATH: dry_run(mlpp_parts, (MLPP_BATCH, 1024, 1024, 3))}
+
+
+def phase_ml_slices(preds):
+    """The multi-level SP step (2048² bs1) and multi-level SP x PP (1024²
+    bs6, GPipe): 1 warm-up and 3 timed steps each, launches equal to the
+    dry runs'."""
+    import torch
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, build, batch in ((ML_PATH, lambda: ml_parts(dev), 1),
+                               (MLPP_PATH, lambda: mlpp_parts(dev), MLPP_BATCH)):
+        t0 = time.perf_counter()
+        parts = build()
+        losses, times, peak, launches = sp_train(dev, parts, preds[name], 4, name,
+                                                 batch=batch)
+        print(f"multilevel slice: {name} bs{batch} bf16 levels 2x2 -> 1x2: "
+              f"{batch * len(times) / sum(times):.3f} img/s "
+              f"({1e3 * sum(times) / len(times):.1f} ms/step), peak {peak / 2**30:.2f} GiB, "
+              f"K2 {preds[name].counts['halo_conv2d_stats']} K1 "
+              f"{preds[name].counts['halo_conv2d']} launches a step, first-step loss "
+              f"{losses[0]:.6f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        out[name] = launches
+        del parts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ml_checks():
+    """Multi-level SP (square 4,2 and the degenerate vertical 2,1) and
+    multi-level SP x PP at reduced depth (``utils/devcheck.engine_run``,
+    two steps): against the single-card step over the same micro-batches at
+    ``tests/test_multilevel.py``'s bounds (losses rtol 1e-4, parameters and
+    running statistics rtol 2e-3 / atol 1e-5) — ResNet-11 v2 32² in fp32
+    with the kernels on, AmoebaNet-D(3, 32) 128² in float64 with them off;
+    and in float64 the card against the CPU: losses rtol 1e-10, updates
+    within 1e-8 (norm-relative).  In fp32 the single card takes the library
+    conv from the first degenerate level's cells on (``kernel_cells``), as
+    the chain does there, and the kernels elsewhere.  Printed, not
+    asserted: the single card's own gap between the kernels on and off over
+    the same two steps, and the square chain against a single card that
+    takes the kernels on exactly the chain's cells (its tail takes none).
+    Two fp32 steps of this BatchNorm'd ResNet fall in one of two outcomes
+    6e-5 apart on the stem's weights, by summation order (PERF.md §6), so
+    those two readings show the size of what the bound cannot tell from
+    rounding."""
+    import torch
+
+    from mpi4dl_tpu_torch.utils.devcheck import engine_run, norm_rel
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    for arch, dtype in (("resnet", torch.float32), ("amoebanet", torch.float64)):
+        f64 = dtype == torch.float64
+        kw = dict(arch=arch, dtype=dtype, pallas=not f64)
+        stops = [1, 3]
+        if f64:
+            kw.update(image=128)
+            stops = [3, 6]
+        init = engine_run("cpu", "single", steps=0, **kw)[1]
+        keys = [k for k in init if init[k].is_floating_point()]
+
+        def gap(a, b, note):
+            d = {k: float((a[k] - b[k]).abs().max()) for k in keys}
+            worst = max(d, key=d.get)
+            stem = next(k for k in keys if k.endswith("kernel"))
+            over = int(((a[stem] - b[stem]).abs() > 1e-5).sum())
+            print(f"multilevel checks: {arch} {dtype} {note}, two steps: max |d| "
+                  f"{d[worst]:.2e} ({worst}); stem {stem}: max |d| {d[stem]:.2e}, {over} "
+                  f"of {a[stem].numel()} above 1e-5", flush=True)
+
+        if not f64:
+            gap(engine_run(dev, "single", micro=4, **kw)[1],
+                engine_run(dev, "single", micro=4, **dict(kw, pallas=False))[1],
+                "one card, kernels on vs off")
+        for engine, method, counts, micro, extra in (
+                ("sp", "square", [4, 2], 4, {}), ("sp", "vertical", [2, 1], 4, {}),
+                ("sp_pp", "square", [4, 2], 2, dict(parts=2))):
+            lv = (method, counts, stops)
+            kcells = next((stops[i - 1] for i, c in enumerate(counts) if c == 1), None)
+            want_losses, want = engine_run(dev, "single", micro=micro, kernel_cells=kcells,
+                                           **kw)
+            losses, got = engine_run(dev, engine, micro=micro, levels=lv, **extra, **kw)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+            dmax = max(float((got[k] - want[k]).abs().max()) for k in keys)
+            print(f"multilevel checks: {arch} {dtype} {engine} {method} {counts} stops "
+                  f"{stops} kernels {'on' if kw['pallas'] else 'off'} (one card: on "
+                  f"{'every cell' if kcells is None else f'cells [0, {kcells})'}): losses "
+                  f"{losses} vs one card {want_losses} (rel {rel:.2e}), parameters max |d| "
+                  f"{dmax:.2e}", flush=True)
+            assert rel <= 1e-4, (arch, engine, counts, rel)
+            for k in keys:
+                torch.testing.assert_close(got[k], want[k], rtol=2e-3, atol=1e-5)
+            if not f64 and engine == "sp" and kcells is None:
+                gap(got, engine_run(dev, "single", micro=micro, kernel_cells=stops[-1],
+                                    **kw)[1],
+                    f"{engine} {method} {counts} vs one card on cells [0, {stops[-1]})")
+            if not f64:
+                continue
+            cpu_losses, cpu = engine_run("cpu", engine, micro=micro, levels=lv, **extra, **kw)
+            crel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+            upd = norm_rel([got[k] - init[k] for k in keys], [cpu[k] - init[k] for k in keys])
+            print(f"multilevel checks: card vs cpu {engine} {method} {counts}: losses rel "
+                  f"{crel:.2e}, update rel {upd:.2e}", flush=True)
+            assert crel <= 1e-10 and upd <= 1e-8, (engine, counts, crel, upd)
+    print(f"multilevel checks: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _peak_step(build, x, y, steps=2):
+    """(median step ms of ``steps`` after a warm-up, peak GiB) of the step
+    that ``build()`` returns, from a reset of the peak."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    parts = build()
+    ms = step_ms(parts, x, y, steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del parts
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def _env_ab(build, x, y, name, values, steps=2):
+    """One step built once, timed (median ms of ``steps`` after a warm-up)
+    and its peak GiB read under each value of the environment hatch
+    ``name`` in turn (the hatches are read at dispatch): [(value, ms,
+    peak)]."""
+    import torch
+
+    torch.cuda.empty_cache()
+    parts = build()
+    out = []
+    for v in values:
+        os.environ[name] = v
+        torch.cuda.reset_peak_memory_stats()
+        ms = step_ms(parts, x, y, steps)
+        out.append((v, ms, torch.cuda.max_memory_allocated() / 2**30))
+    del os.environ[name]
+    del parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def conv_calls(build, image, keep):
+    """The convs of one forward of ``build(meta)`` at ``image``² bs1 (meta
+    device, the kernels' knob carrier as in the timed steps) that ``keep(x
+    shape, kh, kw, sh, sw, groups)`` admits: (x shape, kernel shape,
+    strides, padding) -> calls."""
+    import collections
+
+    import torch
+
+    from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
+    from mpi4dl_tpu_torch.layers import Conv2d
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+
+    model = build(torch.device("meta"))
+    seen = collections.Counter()
+
+    def hook(mod, args):
+        kh, kw, sh, sw, ph, pw = mod._geometry()
+        xs = tuple(args[0].shape)
+        if keep(xs, kh, kw, sh, sw, mod.feature_group_count):
+            seen[(xs, tuple(mod.kernel.shape), (sh, sw), ((ph, ph), (pw, pw)))] += 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, Conv2d)]
+    with torch.no_grad(), hc.count_dispatches():
+        model(torch.zeros((1, image, image, 3), device="meta"),
+              ApplyCtx(train=True, spatial=SpatialCtx(use_pallas_conv=True)))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def conv_route_ab(label, calls, routes):
+    """Each conv of ``calls`` (bf16, seeded) through each of ``routes``
+    ({name: fn(x, w, strides, padding)}): the device ms of its backward
+    (``backward``) or of its forward and backward (``both``), CUDA events
+    over 10 calls, median of 5, and the memory that one forward and
+    backward allocates above its inputs; per conv and summed over a step's
+    calls."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    tot = {name: [0.0, 0.0] for name in routes}
+    for (xs, ws, strides, pad), n in sorted(calls.items()):
+        xt = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16).requires_grad_(True)
+        wt = (torch.randn(ws, generator=gen, device=dev) / math.sqrt(ws[0] * ws[1] * ws[2])
+              ).to(torch.bfloat16).requires_grad_(True)
+        ct = None
+        row = {}
+        for name, (fn, what) in routes.items():
+            if ct is None:
+                ct = torch.randn(fn(xt, wt, strides, pad).shape, generator=gen,
+                                 device=dev).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            torch.autograd.grad(fn(xt, wt, strides, pad), (xt, wt), ct)
+            extra = (torch.cuda.max_memory_allocated() - base) / 2**20
+            if what == "backward":
+                yt = fn(xt, wt, strides, pad)
+                ms = time_ms(lambda: torch.autograd.grad(yt, (xt, wt), ct,
+                                                         retain_graph=True), 10)
+                del yt
+            else:
+                ms = time_ms(lambda: torch.autograd.grad(fn(xt, wt, strides, pad), (xt, wt),
+                                                         ct), 10)
+            row[name] = (ms, extra)
+            tot[name][0] += n * ms
+            tot[name][1] = max(tot[name][1], extra)
+        print(f"memory levers: {label} x{xs} w{ws} s{strides} x{n} a step: "
+              + ", ".join(f"{name} {ms:.4f} ms {extra:.1f} MiB"
+                          for name, (ms, extra) in row.items()), flush=True)
+        del xt, wt, ct
+    print(f"memory levers: {label}, a step's calls: "
+          + ", ".join(f"{name} {t:.3f} ms (largest {m:.1f} MiB)"
+                      for name, (t, m) in tot.items()), flush=True)
+
+
+def phase_memory_levers():
+    """The memory levers, each A/B inside this call (median step ms of 2
+    after a warm-up, peak): AmoebaNet-D(18, 416) 2048² bs1 on one card,
+    bf16, kernels on, remat none / cell / sqrt / fine; the SP AmoebaNet
+    2048² grid with ``MPI4DL_STRIPE_BWD`` 0, 1, 0, 1 (one built step, the
+    hatch set between measurements).  The JAX package's two TPU conv
+    routes, which no layer of the port dispatches, each against the
+    library conv on the card (:func:`conv_route_ab`): ``hstripe_conv2d``
+    forward and backward at every conv of ResNet-110 v2 2048² that JAX's
+    gate would stripe (stride 1, ungrouped, at most 64 channels over at
+    least 2^20 pixels, ``layers.py:182-200``), and the phase dx's backward
+    at every strided ungrouped conv of AmoebaNet-D(18, 416) 1024².
+    Recorded, not asserted."""
+    import torch
+
+    from mpi4dl_tpu_torch.models import amoebanetd, get_resnet_v2
+    from mpi4dl_tpu_torch.ops import conv_phase as cp
+    from mpi4dl_tpu_torch.ops import hstripe_conv as hs
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_train_step
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def single(image, remat):
+        def build():
+            model = amoebanetd((1, image, image, 3), num_classes=1000, num_layers=18,
+                               num_filters=416, device=dev, seed=0)
+            opt = Optimizer("sgd", lr=1e-3)
+            return model, make_train_step(model, opt, compute_dtype=torch.bfloat16,
+                                          remat=remat, pallas_conv=True), \
+                TrainState.create(model, opt)
+        return build
+
+    x, y = sp_batch(dev, 2048)
+    for remat in (False, "cell", "sqrt", "fine"):
+        ms, peak = _peak_step(single(2048, remat), x, y)
+        print(f"memory levers: AmoebaNet-D(18,416) 2048^2 bs1 one card remat {remat or 'none'}: "
+              f"{ms:.1f} ms a step, peak {peak:.2f} GiB", flush=True)
+    for mode, ms, peak in _env_ab(lambda: sp_parts(dev, "amoebanet", 2048, 18), x, y,
+                                  "MPI4DL_STRIPE_BWD", ("0", "1", "0", "1")):
+        print(f"memory levers: SP AmoebaNet 2048^2 2x2 grid MPI4DL_STRIPE_BWD={mode}: "
+              f"{ms:.1f} ms a step, peak {peak:.2f} GiB", flush=True)
+    del x, y
+    torch.cuda.empty_cache()
+    striped = conv_calls(
+        lambda meta: get_resnet_v2((1, 2048, 2048, 3), 110, 1000, device=meta),
+        2048, lambda xs, kh, kw, sh, sw, g: (sh, sw) == (1, 1) and g == 1 and xs[3] <= 64
+        and xs[1] * xs[2] >= 1 << 20)
+    conv_route_ab("ResNet-110 v2 2048^2 gated convs, forward + backward", striped, {
+        "hstripe_conv2d": (lambda x, w, s, p: hs.hstripe_conv2d(x, w, *p), "both"),
+        "library": (cp._conv_nhwc, "both")})
+    strided = conv_calls(
+        lambda meta: amoebanetd((1, 1024, 1024, 3), num_classes=1000, num_layers=18,
+                                num_filters=416, device=meta),
+        1024, lambda xs, kh, kw, sh, sw, g: (sh, sw) != (1, 1) and g == 1)
+    conv_route_ab("AmoebaNet 1024^2 strided convs, backward", strided, {
+        "phase dx": (cp.conv2d_strided_t, "backward"),
+        "library": (cp._conv_nhwc, "backward")})
+    print(f"memory levers: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -1607,10 +1990,11 @@ def main() -> int:
 
     # The dry runs (meta device, CPU only) in a worker process, meanwhile.
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
     try:
         t0 = time.perf_counter()
-        dry = [pool.submit(all_dry_runs), pool.submit(engine_dry_runs)]
+        dry = [pool.submit(all_dry_runs), pool.submit(engine_dry_runs),
+               pool.submit(ml_dry_runs)]
         secs = _build.build_kernels(verbose=True)
         card = card_line()
         print(f"build: {secs:.1f} s on {card}", flush=True)
@@ -1618,7 +2002,7 @@ def main() -> int:
         check_flash_sass(_build.library_path("block_flash"))
         tot = phase_kernels()
         launches = phase_slice()
-        preds = {**dry[0].result(), **dry[1].result()}
+        preds = {k: v for d in dry for k, v in d.result().items()}
         print(f"dry runs: ready {time.perf_counter() - t0:.1f} s after the start",
               flush=True)
     finally:
@@ -1643,6 +2027,9 @@ def main() -> int:
     timed(phase_kernels_ab)
     gems_launches = timed(phase_gems_sppp_slices, preds)
     timed(phase_engine_checks)
+    ml_launches = timed(phase_ml_slices, preds)
+    timed(phase_ml_checks)
+    timed(phase_memory_levers)
     k3, k3_bwd = timed(phase_flash_kernels)
     timed(phase_ring)
     k3_launches = timed(phase_seq_slice)
@@ -1658,7 +2045,8 @@ def main() -> int:
         return out
 
     print(f"launches: pipeline runs {pp_launches}, local-DP run {ldp_launches}, "
-          f"GEMS / SP x PP runs {gems_launches}", flush=True)
+          f"GEMS / SP x PP runs {gems_launches}, multi-level runs {ml_launches}",
+          flush=True)
 
     entries = [
         dict(kernel_entry("halo_conv2d", SOURCE, K1_SRC,

@@ -11,7 +11,10 @@ the block-flash kernel K3 (``ops/flash_attention.py``,
 ResNet, D1 (a halo exchange per conv or pool) and D2 (one accumulated halo
 per fused run), on one tile per rank or on a one-process tile grid
 (``parallel/``, ``ops/halo.py``, ``ops/d2.py``), with K1 and K2 on tiles
-that carry their halo margins.  The package imports neither JAX nor
+that carry their halo margins, over one level or a multi-level chain of
+coarser grids; data parallelism, LP/PP, GEMS, SP x PP and SP + GEMS; and
+the memory levers (remat levels, the stripe-wise backward, the striped
+conv, the phase-decomposed strided dx).  The package imports neither JAX nor
 ``mpi4dl_tpu``.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """

@@ -6,7 +6,8 @@
 
 builds what the JAX package's ``bench._build_step`` builds (SGD, lr from
 ``--lr``, random weights from ``--seed``) and prints one line per step
-(loss, img/s) and a last JSON line with the kernels' launch counts.  It
+(loss, img/s) and a last JSON line with the kernels' launch counts.
+``--remat none|cell|sqrt|fine`` picks the remat level.  It
 trains on one device: the spatial flags are ignored, as the JAX package's
 ``lp`` family ignores them; the spatial-parallel runners are
 ``mpi4dl_tpu_torch/benchmarks/spatial_parallelism/``, the pipeline and
@@ -31,8 +32,12 @@ def main(argv=None) -> None:
     p = get_parser()
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--remat", choices=["none", "cell", "sqrt", "fine"], default=None,
+                   help="remat level (default: cell, none with --no-remat)")
     args = p.parse_args(argv)
     cfg = config_from_args(args)
+    remat = cfg.remat if args.remat is None else (
+        False if args.remat == "none" else args.remat)
     if cfg.split_size > 1 or cfg.data_parallel > 1:
         raise ValueError("--split-size and --data-parallel need ranks: run "
                          "mpi4dl_tpu_torch.benchmarks.layer_parallelism under torchrun")
@@ -41,7 +46,7 @@ def main(argv=None) -> None:
     opt = Optimizer(cfg.optimizer, lr=cfg.lr, momentum=cfg.momentum)
     step = make_train_step(
         model, opt, parts=cfg.parts, compute_dtype=cfg.compute_dtype,
-        remat=cfg.remat, pallas_conv=resolve_pallas_conv(cfg.pallas_conv),
+        remat=remat, pallas_conv=resolve_pallas_conv(cfg.pallas_conv),
     )
     state = TrainState.create(model, opt)
     gen = torch.Generator(device=dev)

@@ -83,6 +83,51 @@ def resolve_spatial_until(cfg, n_cells: int, in_shape, say=print):
     return clamped
 
 
+def spatial_levels(cfg, n_cells: int, in_shape, tiles=None, say=print):
+    """``[(stop_cell, SpatialCtx)]`` of the spatial region
+    (``benchmarks/common.py:78-143``): level ``i`` covers pipeline split
+    ``i`` of ``--split-size`` even splits with ``num_spatial_parts[i]``
+    tiles, for the first ``--spatial-size`` splits (at most split_size - 1
+    of them when the tail is pipelined); a short parts list repeats its last
+    element, identical neighbouring levels merge, and no level reaches the
+    head.  ``--spatial-until`` re-places the junction: the chain is cut at
+    it, or its last level extended to it."""
+    ranges = split_even(n_cells, max(cfg.split_size, 1), cfg.balance)
+    k = min(max(cfg.spatial_size, 1), len(ranges))
+    if cfg.split_size > 1 and k >= cfg.split_size:
+        k = cfg.split_size - 1
+        say(f"note: spatial_size clamped to {k} (split_size {cfg.split_size} "
+            "needs at least one non-spatial tail split)", flush=True)
+    parts = list(cfg.num_spatial_parts)
+    if len(parts) > k:
+        say(f"note: num_spatial_parts {parts} has more levels than the {k} spatial "
+            f"split(s); using {parts[:k]} (raise --spatial-size and --split-size to "
+            "use the full chain)", flush=True)
+    parts = (parts + [parts[-1]] * k)[:k]
+    ctxs = spatial_levels_for(
+        cfg.slice_method, parts, tiles=tiles, bn_cross_tile=cfg.bn_cross_tile,
+        d2_mode=cfg.halo_d2,
+        d2_max_fused=cfg.fused_layers if cfg.fused_layers > 0 else None,
+        use_pallas_conv=resolve_pallas_conv(cfg.pallas_conv))
+    levels = []
+    for i in range(k):
+        stop = min(ranges[i][1], n_cells - 1)
+        if levels and ctxs[i] == levels[-1][1]:
+            levels[-1] = (stop, levels[-1][1])
+        elif stop > (levels[-1][0] if levels else 0):
+            levels.append((stop, ctxs[i]))
+    if cfg.spatial_until is not None:
+        su = resolve_spatial_until(cfg, n_cells, in_shape, say)
+        cut = []
+        for stop, c in levels:
+            if cut and cut[-1][0] >= su:
+                break
+            cut.append((min(stop, su), c))
+        cut[-1] = (su, cut[-1][1])
+        levels = cut
+    return levels
+
+
 def _unported_flags(args):
     if args.telemetry_dir is not None:
         raise NotImplementedError("telemetry (--telemetry-dir) is not ported to "
@@ -144,22 +189,22 @@ def _build(cfg, family: str, dev, mesh, say):
             step = make_pipeline_train_step(part, opt, stages, cfg.parts, **kw)
         notes.update(stage=stages.local_stages[0], ranges=part.ranges)
         return step, init_pipeline_state(part, opt, stages), notes, None
-    su = resolve_spatial_until(cfg, len(mdl.cells), mdl.in_shape, say)
+    if cfg.stripe_bwd:
+        # The stripe-wise backward is dispatched off the hatch, read at each
+        # layer run (benchmarks/common.py:159-168).
+        os.environ["MPI4DL_STRIPE_BWD"] = "1"
+    levels = spatial_levels(cfg, len(mdl.cells), mdl.in_shape, mesh.tiles, say)
+    sp, su = levels[0][1], levels[-1][0]
     mdl.spatial_until = su
-    (sp,) = spatial_levels_for(
-        cfg.slice_method, cfg.num_spatial_parts[:1], tiles=mesh.tiles,
-        bn_cross_tile=cfg.bn_cross_tile, d2_mode=cfg.halo_d2,
-        d2_max_fused=cfg.fused_layers if cfg.fused_layers > 0 else None,
-        use_pallas_conv=pallas,
-    )
     junction = "batch_split" if cfg.local_dp_lp > 1 else "gather"
     local_dp = cfg.local_dp_lp if junction == "batch_split" else None
-    notes.update(spatial_until=su, junction=junction)
+    notes.update(spatial_until=su, junction=junction,
+                 levels=[(stop, c.grid_h, c.grid_w) for stop, c in levels])
     if family == "sp" and cfg.split_size <= 1:
         step = make_spatial_train_step(
             mdl, opt, sp, parts=cfg.parts, compute_dtype=cfg.compute_dtype,
             spatial_until=su, remat=cfg.remat, junction=junction, local_dp=local_dp,
-            with_data_axis=data)
+            with_data_axis=data, levels=levels)
         return step, TrainState.create(mdl, opt), notes, mdl.cells[su:]
     if cfg.split_size < 2:
         raise ValueError("the gems_sp family needs --split-size >= 2 (the tail's stages)")
@@ -169,7 +214,8 @@ def _build(cfg, family: str, dev, mesh, say):
         raise ValueError(f"--batch-size {cfg.batch_size} must divide into {groups} "
                          "micro-batches")
     spp = SPPipeline.build(mdl, cfg.split_size, sp, cfg.batch_size // groups,
-                           junction=junction, balance=cfg.balance, local_dp=local_dp)
+                           junction=junction, balance=cfg.balance, local_dp=local_dp,
+                           levels=levels)
     stages = stage_backend()
     kw = dict(compute_dtype=cfg.compute_dtype, remat=cfg.remat, with_data_axis=data,
               schedule=cfg.schedule)

@@ -9,6 +9,8 @@ trick with no effect on values and has no counterpart here.
 
 from __future__ import annotations
 
+import math
+import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -19,6 +21,7 @@ from mpi4dl_tpu_torch.layer_ctx import ApplyCtx
 from mpi4dl_tpu_torch.layers import Layer
 from mpi4dl_tpu_torch.obs.scopes import scope
 from mpi4dl_tpu_torch.ops.d2 import maybe_run_d2, maybe_run_fused_unsharded
+from mpi4dl_tpu_torch.ops.stripe_bwd import maybe_stripe_run
 
 
 class Cell(nn.Module):
@@ -37,7 +40,9 @@ class LayerCell(Cell):
         self.layers = nn.ModuleList(layers)
 
     def forward(self, x, ctx: ApplyCtx):
-        for run in (maybe_run_d2, maybe_run_fused_unsharded):
+        # D2, then the stripe-wise backward (ops/stripe_bwd.py), then the
+        # unsharded K2 windows (cells.py:56-75).
+        for run in (maybe_run_d2, maybe_stripe_run, maybe_run_fused_unsharded):
             y = run(self.layers, x, ctx)
             if y is not None:
                 return y
@@ -64,7 +69,8 @@ def checkpointed_apply(fn: Callable, x, ctx: ApplyCtx):
     """``fn(x, ctx)`` under ``torch.utils.checkpoint``: the backward
     recomputes the activations instead of keeping them.  BatchNorm layers
     inside OVERWRITE their ``ctx.bn_sink`` entry, so the recompute leaves
-    the running-statistics update as the forward wrote it."""
+    the running-statistics update as the forward wrote it (also when
+    checkpoints nest, as under remat "sqrt" and "fine")."""
     return checkpoint(fn, x, ctx, use_reentrant=False)
 
 
@@ -90,13 +96,27 @@ class CellModel(nn.Module):
 
     def forward(self, x, ctx: ApplyCtx, remat=False, start: int = 0,
                 stop: Optional[int] = None):
-        """Run cells [start, stop).  ``remat`` True (or "cell") checkpoints
-        each cell; the finer JAX levels ("fine", "sqrt") are later work."""
-        if remat not in (False, True, "cell"):
-            raise NotImplementedError(
-                f"remat={remat!r}: only per-cell remat is ported (ROADMAP A4)"
-            )
+        """Run cells [start, stop) (``cells.py:126-175``).  ``remat`` True,
+        "cell" or "fine" checkpoints each cell ("fine" adds the per-op
+        checkpoints of ``ctx.remat_ops``, which ``make_train_step`` sets);
+        "sqrt" runs more than 3 cells in ~√n groups, each an outer
+        checkpoint over per-cell inner ones, so that the backward holds the
+        group boundaries and one group's cell boundaries
+        (``MPI4DL_SQRT_GROUPS`` sets the group count)."""
+        if remat not in (False, True, "cell", "fine", "sqrt"):
+            raise ValueError(f"unknown remat level {remat!r}")
         stop = len(self.cells) if stop is None else stop
+        if remat == "sqrt" and stop - start > 3:
+            n = stop - start
+            g = int(os.environ.get("MPI4DL_SQRT_GROUPS", "0")) or max(2, math.isqrt(n))
+            for lo, hi in split_even(n, min(n, g)):
+                x = checkpointed_apply(
+                    lambda t, c, _lo=start + lo, _hi=start + hi: self._cells(
+                        t, c, _lo, _hi, True), x, ctx)
+            return x
+        return self._cells(x, ctx, start, stop, bool(remat))
+
+    def _cells(self, x, ctx: ApplyCtx, start: int, stop: int, remat: bool):
         for i in range(start, stop):
             cell = self.cells[i]
             with scope(f"cell{i:02d}"):

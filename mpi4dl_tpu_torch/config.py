@@ -2,9 +2,10 @@
 
 The parser keeps the JAX package's flag vocabulary (itself the reference's,
 ``src/torchgems/parser.py``) and its defaults.  The port runs the
-single-device engine, data parallelism, single-level spatial parallelism
-(D1 and D2, the ``gather`` and ``batch_split`` junctions), the LP/PP
-pipelines (GPipe, 1F1B), GEMS (``--times``) and SP x PP / SP + GEMS; a
+single-device engine, data parallelism, spatial parallelism (D1 and D2,
+the ``gather`` and ``batch_split`` junctions, multi-level
+``--num-spatial-parts`` lists, ``--stripe-bwd``), the LP/PP pipelines
+(GPipe, 1F1B), GEMS (``--times``) and SP x PP / SP + GEMS; a
 flag that asks for an engine not ported yet raises NotImplementedError
 naming its ROADMAP item instead of being ignored.
 """
@@ -56,7 +57,7 @@ class ParallelConfig:
     remat: bool = True  # checkpoint each cell
     pallas_conv: Optional[bool] = None  # None = auto = off
     quant_collectives: str = "off"
-    stripe_bwd: bool = False
+    stripe_bwd: bool = False  # the runners set MPI4DL_STRIPE_BWD=1
     spatial_until: Optional[object] = None
     verbose: bool = False
     checkpoint_dir: Optional[str] = None
@@ -86,13 +87,9 @@ class ParallelConfig:
             raise ValueError(f"--balance {self.balance} needs {self.split_size} "
                              "entries (--split-size)")
         unported = [
-            (self.spatial_size > 0 and len(set(self.num_spatial_parts)) > 1,
-             "multi-level spatial parallelism (a --num-spatial-parts list)",
-             "A11"),
             (self.app != 3 or self.checkpoint_dir is not None,
              "data loading and checkpoints (--app 1/2, --checkpoint-dir)",
              "A10"),
-            (self.stripe_bwd, "stripe-wise backward (--stripe-bwd)", "A11"),
             (self.quant_collectives != "off",
              "quantized collectives (--quant)", "A13"),
         ]

@@ -34,8 +34,9 @@ class SpatialCtx:
     axis_w: Optional[str] = None
     grid_h: int = 1
     grid_w: int = 1
-    # Tiles per mesh-axis device; only multi-level SP (ROADMAP A11) sets
-    # them above 1, so they stay 1 here.
+    # Devices per tile along each axis: above 1 on the coarser levels of
+    # multi-level SP (``--num-spatial-parts 4,2``), whose tiles each span
+    # rep_h x rep_w ranks of level 0 (``tiles`` is that level's backend).
     rep_h: int = 1
     rep_w: int = 1
     # True: BatchNorm sums its statistics over the tile grid (single-device
@@ -105,6 +106,10 @@ class ApplyCtx:
     spatial: Optional[SpatialCtx] = None
     bn_sink: Optional[dict] = None
     bn_shards: int = 1
+    # Fine remat: composite cells (AmoebaNet cells, ResNet branches) also
+    # checkpoint each op inside them (``make_train_step(remat="fine")``,
+    # ``MPI4DL_REMAT_OPS=1``; ``layer_ctx.py:116-121``).
+    remat_ops: bool = False
 
     def with_spatial(self, spatial: Optional[SpatialCtx]) -> "ApplyCtx":
         return dataclasses.replace(self, spatial=spatial)
@@ -136,13 +141,44 @@ def spatial_ctx_for(slice_method: str, num_spatial_parts: int, tiles=None,
     return sp
 
 
-def spatial_levels_for(slice_method: str, parts_list, tiles=None, **kw) -> list:
-    """Per-level SpatialCtx chain (``layer_ctx.py:183-202``), for one level:
-    multi-level SP (a ``4,2`` parts list) is ROADMAP A11."""
-    parts_list = list(parts_list)
-    if len(set(parts_list)) > 1:
-        raise NotImplementedError(
-            "multi-level spatial parallelism (a --num-spatial-parts list) is "
-            "not ported to PyTorch yet (ROADMAP A11)"
+def _level_grid(parts: int, gh0: int, gw0: int) -> tuple:
+    """``parts`` tiles as a ``(gh, gw)`` grid inside the base ``(gh0,
+    gw0)`` grid (gh | gh0, gw | gw0), the most square such factorization,
+    ties to the wider W (``layer_ctx.py:154-172``)."""
+    best = None
+    for d in range(1, parts + 1):
+        if parts % d:
+            continue
+        e = parts // d
+        if gh0 % d == 0 and gw0 % e == 0:
+            score = abs(d - e)
+            if best is None or score < best[0]:
+                best = (score, d, e)
+    if best is None:
+        raise ValueError(
+            f"spatial level of {parts} tiles does not embed in the base "
+            f"{gh0}x{gw0} grid: need a factorization gh*gw={parts} with "
+            f"gh | {gh0} and gw | {gw0}"
         )
-    return [spatial_ctx_for(slice_method, parts_list[0], tiles=tiles, **kw)]
+    return best[1], best[2]
+
+
+def spatial_levels_for(slice_method: str, parts_list, tiles=None, **kw) -> list:
+    """The per-level SpatialCtx chain of multi-level SP (``layer_ctx.py:
+    175-202``; the reference's ``num_spatial_parts="4,2"``).  Level 0
+    defines the tile grid; each later level is a coarser grid on the same
+    ranks, its tiles replicated ``rep = base grid / level grid`` times, with
+    ``tiles.level(...)`` as its backend.  Levels must not grow, and each
+    must embed in the base grid."""
+    parts_list = list(parts_list)
+    base = spatial_ctx_for(slice_method, parts_list[0], tiles=tiles, **kw)
+    out = [base]
+    gh0, gw0 = base.grid_h, base.grid_w
+    for p in parts_list[1:]:
+        if p > parts_list[0]:
+            raise ValueError(f"spatial levels must not grow: {p} > {parts_list[0]}")
+        gh, gw = _level_grid(p, gh0, gw0)
+        out.append(dataclasses.replace(
+            base, grid_h=gh, grid_w=gw, rep_h=gh0 // gh, rep_w=gw0 // gw,
+            tiles=None if tiles is None else tiles.level(gh, gw)))
+    return out

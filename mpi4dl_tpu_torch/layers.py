@@ -9,14 +9,18 @@ Parameters are stored in ``param_dtype`` and cast to the activation's dtype
 at use.  Library convs and pools see an NHWC tensor through a zero-copy
 ``permute(0, 3, 1, 2)``: an NCHW tensor in ``channels_last`` memory.
 
-Left out of this port, because they do not change values: the TPU lane
-padding (``MPI4DL_LANE_PAD``), the H-striped conv (``ops/hstripe_conv.py``,
-a TPU memory lever), the phase-decomposed strided dx (``ops/conv_phase.py``,
-value-identical to the library conv's backward) and the ``MPI4DL_*``
-environment hatches.  Under an active :class:`SpatialCtx` convs and pools
-exchange halos with the neighbouring tiles (``ops/halo.py``), BatchNorm
-sums its statistics over the tiles and GlobalAvgPool averages over them,
-as ``layers.py:223-249, 353-425, 646-728`` do.
+Convs take the K1 kernel when opted in, else the library conv.  The JAX
+package's two TPU conv routes are not dispatched here (the same function
+in another summation order, both slower on an H100, PERF.md §6): the
+H-striped conv and the phase-decomposed strided dx are ported as ops
+(``ops/hstripe_conv.hstripe_conv2d``, ``ops/conv_phase.conv2d_strided_t``)
+that no layer calls.  Left out, because it does not change values: the TPU
+lane padding (``MPI4DL_LANE_PAD``).  Under an active :class:`SpatialCtx`
+convs and pools exchange halos with the neighbouring tiles (``ops/halo.py``),
+BatchNorm sums its statistics over the tiles and GlobalAvgPool averages
+over them, as ``layers.py:223-249, 353-425, 646-728`` do; on a coarser
+level of multi-level SP the same holds on its grid, the neighbours
+``rep`` ranks away and the sums counting each tile ``rep`` times.
 """
 
 from __future__ import annotations
@@ -81,8 +85,9 @@ class Conv2d(Layer):
     padding the other dims.  A conv that :meth:`_pallas_dispatchable`
     admits then runs as explicit pad + the margin-consuming K1 kernel
     (``ops/halo_conv.halo_conv2d_t``) — on any sharded tile, and unsharded
-    only for the axis-free knob carrier; every other conv is the library
-    conv, as the JAX package leaves it to XLA.
+    only for the axis-free knob carrier (not on a degenerate level, which
+    runs unsharded); every other conv is the library conv, as the JAX
+    package leaves it to XLA.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: Any = 3,

@@ -17,13 +17,13 @@ from typing import Callable, List, Tuple
 import torch
 from torch import nn
 
-from mpi4dl_tpu_torch.cells import Cell, CellModel, LayerCell
+from mpi4dl_tpu_torch.cells import Cell, CellModel, LayerCell, checkpointed_apply
 from mpi4dl_tpu_torch.device import resolve_device
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx
 from mpi4dl_tpu_torch.layers import (
     BatchNorm, Conv2d, Dense, GlobalAvgPool, Identity, Layer, Pool2d, ReLU,
 )
-from mpi4dl_tpu_torch.ops.d2 import accumulated_halo, apply_layers_premargin
+from mpi4dl_tpu_torch.ops.d2 import accumulated_halo, apply_layers_premargin, premargin_out
 from mpi4dl_tpu_torch.ops.halo import HaloSpec, halo_exchange_2d
 
 
@@ -174,10 +174,11 @@ class AmoebaCell(Cell):
             if plan is not None:
                 return self._apply_d2(x, ctx, plan)
         s1, s2 = x if isinstance(x, tuple) else (x, x)
-        states = [self.reduce1(s1, ctx), self.reduce2(s2, ctx)]
+        app = _op_applier(ctx)
+        states = [app(self.reduce1, s1), app(self.reduce2, s2)]
         for j in range(0, len(self.ops), 2):
-            y1 = self.ops[j](states[self.indices[j]], ctx)
-            y2 = self.ops[j + 1](states[self.indices[j + 1]], ctx)
+            y1 = app(self.ops[j], states[self.indices[j]])
+            y2 = app(self.ops[j + 1], states[self.indices[j + 1]])
             states.append(y1 + y2)
         return torch.cat([states[i] for i in self.concat], dim=-1), s1
 
@@ -220,9 +221,10 @@ class AmoebaCell(Cell):
             return t[:, ch:t.shape[1] - ch, cw:t.shape[2] - cw, :]
 
         s1_in, s2_in = x if isinstance(x, tuple) else (x, x)
+        app = _op_applier(ctx)
         states = []
-        for t, (nh, nw) in ((self.reduce1(s1_in, ctx), need[0]),
-                            (self.reduce2(s2_in, ctx), need[1])):
+        for t, (nh, nw) in ((app(self.reduce1, s1_in), need[0]),
+                            (app(self.reduce2, s2_in), need[1])):
             mh, mw = dims(nh, nw)
             t = halo_exchange_2d(t, HaloSpec.symmetric(mh), HaloSpec.symmetric(mw),
                                  sp.axis_h, sp.axis_w, sp.grid_h, sp.grid_w, sp.tiles)
@@ -232,11 +234,28 @@ class AmoebaCell(Cell):
             outs = []
             for jj in (j, j + 1):
                 t, mh, mw = states[self.indices[jj]]
-                y, mho, mwo = apply_layers_premargin(self.ops[jj].layers, t, ctx, mh, mw)
+                if ctx.remat_ops:
+                    # The checkpoint returns tensors only: the margins
+                    # follow from the geometry (premargin_out).
+                    y = checkpointed_apply(
+                        lambda tt, c, _l=self.ops[jj].layers, _mh=mh, _mw=mw:
+                        apply_layers_premargin(_l, tt, c, _mh, _mw)[0], t, ctx)
+                    mho, mwo = premargin_out(self.ops[jj].layers, ctx, mh, mw)
+                else:
+                    y, mho, mwo = apply_layers_premargin(self.ops[jj].layers, t, ctx, mh, mw)
                 outs.append(crop(y, mho - tnh, mwo - tnw))
             states.append((outs[0] + outs[1], tnh, tnw))
         out = torch.cat([crop(*states[i]) for i in self.concat], dim=-1)
         return out, s1_in
+
+
+def _op_applier(ctx: ApplyCtx):
+    """``app(op, x)``: each reduce and op its own checkpoint under fine
+    remat (``ctx.remat_ops``, ``amoebanet.py:284-300, 389-420``), so the
+    backward holds one op's internals at a time."""
+    if ctx.remat_ops:
+        return lambda op, t: checkpointed_apply(op, t, ctx)
+    return lambda op, t: op(t, ctx)
 
 
 class Classify(Cell):

@@ -10,8 +10,11 @@ stride-1 3x3 convs take K1 when the kernel knob is on.  On one device a
 stride-1 v2 branch of 2^22 pixels or more with ≤ 64 channels runs H
 stripe by H stripe, as in the JAX package
 (:func:`~mpi4dl_tpu_torch.ops.hstripe_conv.hstripe_layer_run`: pad-once
-borders, per-stripe BatchNorm statistics).  Left out: the stripe-wise
-backward (``maybe_stripe_run``, ``--stripe-bwd``, ROADMAP A11).
+borders, per-stripe BatchNorm statistics).  With ``--stripe-bwd`` a
+stride-1 branch runs through the stripe-wise backward first
+(:func:`~mpi4dl_tpu_torch.ops.stripe_bwd.maybe_stripe_run`,
+``resnet.py:136-142, 214-221``), and under fine remat (``ctx.remat_ops``)
+each sub-cell of a branch is its own checkpoint (``resnet.py:71-85``).
 
 ``softmax_in_model`` reproduces the reference's softmax inside the model
 (followed by its cross-entropy, a double softmax).
@@ -23,7 +26,7 @@ from typing import List, Tuple
 
 import torch
 
-from mpi4dl_tpu_torch.cells import Cell, CellModel, LayerCell
+from mpi4dl_tpu_torch.cells import Cell, CellModel, LayerCell, checkpointed_apply
 from mpi4dl_tpu_torch.device import resolve_device
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx
 from mpi4dl_tpu_torch.layers import (
@@ -33,6 +36,7 @@ from mpi4dl_tpu_torch.ops.d2 import maybe_run_d2
 from mpi4dl_tpu_torch.ops.hstripe_conv import (
     hstripe_enabled, hstripe_layer_run, hstripe_run_eligible,
 )
+from mpi4dl_tpu_torch.ops.stripe_bwd import maybe_stripe_run
 
 
 def _resnet_layer(in_f: int, out_f: int, kernel: int = 3, stride: int = 1,
@@ -57,8 +61,10 @@ def _resnet_layer(in_f: int, out_f: int, kernel: int = 3, stride: int = 1,
 
 
 def _apply_branch(sub_cells, x, ctx: ApplyCtx):
+    """A residual branch's sub-cells in order, each its own checkpoint
+    under fine remat."""
     for cell in sub_cells:
-        x = cell(x, ctx)
+        x = checkpointed_apply(cell, x, ctx) if ctx.remat_ops else cell(x, ctx)
     return x
 
 
@@ -68,6 +74,7 @@ class ResBlockV1(Cell):
     def __init__(self, in_f: int, out_f: int, stride: int, shortcut_conv: bool,
                  name: str = "res_v1"):
         super().__init__(name)
+        self.stride = stride
         self.r1 = LayerCell(_resnet_layer(in_f, out_f, stride=stride))
         self.r2 = LayerCell(_resnet_layer(out_f, out_f, activation=False))
         self.r3 = (LayerCell(_resnet_layer(in_f, out_f, kernel=1, stride=stride,
@@ -75,7 +82,10 @@ class ResBlockV1(Cell):
                    if shortcut_conv else None)
 
     def forward(self, x, ctx: ApplyCtx):
-        y = maybe_run_d2(list(self.r1.layers) + list(self.r2.layers), x, ctx)
+        branch = list(self.r1.layers) + list(self.r2.layers)
+        y = maybe_run_d2(branch, x, ctx)
+        if y is None and self.stride == 1:
+            y = maybe_stripe_run(branch, x, ctx)
         if y is None:
             y = _apply_branch((self.r1, self.r2), x, ctx)
         if self.r3 is not None:
@@ -104,6 +114,9 @@ class ResBlockV2(Cell):
         branch = list(self.r1.layers) + list(self.r2.layers) + list(self.r3.layers)
         # D2: one halo exchange for the whole bottleneck.
         y = maybe_run_d2(branch, x, ctx)
+        if y is None and self.stride == 1:
+            # The whole bottleneck stripe-wise, one accumulated halo.
+            y = maybe_stripe_run(branch, x, ctx)
         if (y is None and self.stride == 1 and hstripe_enabled()
                 and hstripe_run_eligible(branch, x.shape, ctx)):
             # One device, huge spatial: the branch H stripe by H stripe.

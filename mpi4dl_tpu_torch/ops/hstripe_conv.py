@@ -1,14 +1,25 @@
-"""The H-striped layer run of a stride-1 residual branch (counterpart of
-``mpi4dl_tpu/ops/hstripe_conv.py:140-386``: ``hstripe_run_eligible``,
-``hstripe_layer_run`` and their exact-statistics mode).
+"""H-striped convolution and the H-striped layer run of a stride-1
+residual branch (counterpart of ``mpi4dl_tpu/ops/hstripe_conv.py``).
 
-On one device, a huge-spatial tiny-channel ResNet branch runs H stripe by
-H stripe: the run's accumulated H margin is zero-padded once and each
-stripe goes through :func:`~mpi4dl_tpu_torch.ops.d2.apply_layers_premargin`
-under a fake H-sharded :class:`SpatialCtx` with no collectives
-(``stat_local``), each stripe checkpointed so that the backward recomputes
-it.  That changes the numbers, as it does in the JAX package, and the
-port follows it there:
+:func:`hstripe_conv2d` (``hstripe_conv.py:42-128``) is one stride-1 conv
+computed H stripe by H stripe, so that the conv's working set is one
+stripe's: each stripe is a VALID conv of ``sh + kh - 1`` padded input rows,
+and the backward builds dx and dw stripe by stripe into one buffer.  The
+same function, another summation order; the stripe count keeps one
+stripe's im2col patch within ``_PATCH_BUDGET`` (one stripe: the plain
+conv).  The JAX package dispatches it from ``Conv2d`` for tiny-channel
+huge-spatial convs, a TPU memory lever (``layers.py:182-200``); no layer of
+this port does: on an H100 it saved no memory and was slower
+(``chip_smoke.py``'s memory-lever phase, PERF.md §6).
+
+The layer run (``hstripe_conv.py:140-386``: ``hstripe_run_eligible``,
+``hstripe_layer_run`` and their exact-statistics mode): on one device, a
+huge-spatial tiny-channel ResNet branch runs H stripe by H stripe: the
+run's accumulated H margin is zero-padded once and each stripe goes
+through :func:`~mpi4dl_tpu_torch.ops.d2.apply_layers_premargin` under a
+fake H-sharded :class:`SpatialCtx` with no collectives (``stat_local``),
+each stripe checkpointed so that the backward recomputes it.  That changes
+the numbers, as it does in the JAX package, and the port follows it there:
 
 - borders are pad-once zeros on H (the halo-D2 semantics); W keeps each
   conv's own SAME padding;
@@ -66,6 +77,75 @@ def _run_mode() -> str:
 
 def _exact_stats() -> bool:
     return os.environ.get("MPI4DL_HSTRIPE_EXACT") == "1"
+
+
+# Bytes of one stripe's im2col patch (hstripe_conv.py:39).
+_PATCH_BUDGET = 192 * 1024 * 1024
+def _pick_stripes(h: int, wid: int, cin: int, kh: int, kw: int, itemsize: int) -> int:
+    patch = h * wid * cin * kh * kw * itemsize
+    if patch <= _PATCH_BUDGET:
+        return 1
+    return min(h, -(-patch // _PATCH_BUDGET))
+
+
+def _nchw_w(w):
+    return w.permute(3, 2, 0, 1).contiguous()
+
+
+class _HStripeConv(torch.autograd.Function):
+    """VALID conv of the padded ``xp`` [N, S·sh + kh - 1, Wp, Cin], stripe
+    by stripe; the backward likewise (dx accumulated into one buffer, dw
+    summed over the stripes)."""
+
+    @staticmethod
+    def forward(ctx, xp, w, stripes, sh):
+        ctx.save_for_backward(xp, w)
+        ctx.stripes, ctx.sh = stripes, sh
+        kh = w.shape[0]
+        wo = _nchw_w(w)
+        ys = [torch.nn.functional.conv2d(
+            xp[:, i * sh:i * sh + sh + kh - 1].permute(0, 3, 1, 2), wo).permute(0, 2, 3, 1)
+            for i in range(stripes)]
+        return torch.cat(ys, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        stripes, sh = ctx.stripes, ctx.sh
+        kh, kw, cin, cout = w.shape
+        wo = _nchw_w(w)
+        dx = torch.zeros_like(xp)
+        dw = torch.zeros(wo.shape, dtype=torch.float32 if w.dtype != torch.float64
+                         else w.dtype, device=w.device)
+        for i in range(stripes):
+            xs = xp[:, i * sh:i * sh + sh + kh - 1].permute(0, 3, 1, 2)
+            gs = g[:, i * sh:(i + 1) * sh].permute(0, 3, 1, 2).contiguous()
+            dx[:, i * sh:i * sh + sh + kh - 1] += torch.nn.grad.conv2d_input(
+                xs.shape, wo, gs).permute(0, 2, 3, 1)
+            dw += torch.nn.grad.conv2d_weight(xs.contiguous(), wo.shape, gs)
+        return dx, dw.permute(2, 3, 1, 0).to(w.dtype), None, None
+
+
+def hstripe_conv2d(x, w, pad_h=(0, 0), pad_w=(0, 0)):
+    """Stride-1 conv of ``x`` [N, H, W, Cin] with ``w`` [kh, kw, Cin,
+    Cout] and explicit (lo, hi) padding, H stripe by H stripe
+    (``hstripe_conv.py:62-128``): the stripe count keeps a stripe's patch
+    within ``_PATCH_BUDGET``; a ragged last stripe runs over zero rows
+    whose outputs are dropped.  One stripe: the plain conv."""
+    n, h, wid, cin = x.shape
+    kh, kw, _, _ = w.shape
+    (phl, phh), (pwl, pwh) = pad_h, pad_w
+    oh = h + phl + phh - (kh - 1)
+    stripes = _pick_stripes(oh, wid + pwl + pwh, cin, kh, kw, x.element_size())
+    if stripes == 1:
+        xp = torch.nn.functional.pad(x, (0, 0, pwl, pwh, phl, phh))
+        return torch.nn.functional.conv2d(xp.permute(0, 3, 1, 2), _nchw_w(w)).permute(0, 2, 3, 1)
+    sh = -(-oh // stripes)
+    stripes = -(-oh // sh)
+    extra = stripes * sh - oh
+    xp = torch.nn.functional.pad(x, (0, 0, pwl, pwh, phl, phh + extra))
+    y = _HStripeConv.apply(xp, w, stripes, sh)
+    return y[:, :oh] if extra else y
 
 
 def _smallest_divisor_at_least(n: int, want: int) -> int:

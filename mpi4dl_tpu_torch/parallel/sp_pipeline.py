@@ -1,5 +1,5 @@
 """SP x PP and SP + GEMS: a spatial region on tiles, then a pipelined tail
-(counterpart of ``mpi4dl_tpu/parallel/sp_pipeline.py``, one spatial level).
+(counterpart of ``mpi4dl_tpu/parallel/sp_pipeline.py``).
 
 A step runs in two phases on a mesh of (data, stage, sph, spw) ranks, or
 in one process on a :class:`~mpi4dl_tpu_torch.parallel.tiles.TileGrid`
@@ -30,7 +30,10 @@ metrics.  The tail's are averaged over the tile ranks of its own stage
 and over ``data``: one all-reduce over the data x tile group, with the
 tail's statistics.  On the one-process grid and chain there is nothing to
 reduce but the data axis.  ``labels_to_parts`` (``:352-364``) applies
-phase 1's index map to the labels.  Multi-level SP is ROADMAP A11.
+phase 1's index map to the labels.  With ``levels`` (multi-level SP,
+level 0 unreplicated, ``:140-150``) the region runs level by level; a
+degenerate level's gradients are complete on each tile rank of a stage
+under ``gather``, so they are averaged over the tiles as the tail's are.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ from mpi4dl_tpu_torch.parallel.gems import GemsMirror, combine_streams
 from mpi4dl_tpu_torch.parallel.partition import StagePartition, probe_cell
 from mpi4dl_tpu_torch.parallel.pipeline import local_params
 from mpi4dl_tpu_torch.parallel.spatial import (
-    apply_junction, apply_spatial_region, junction_degree, junction_shard_index,
+    active_region_cells, apply_junction, apply_spatial_region, junction_degree,
+    junction_shard_index,
 )
 from mpi4dl_tpu_torch.parallel.stage_common import gems_dual, gpipe, one_f_one_b
 from mpi4dl_tpu_torch.train import Optimizer, TrainState, data_shard, merge_stat_updates
@@ -78,6 +82,7 @@ class SPPipeline:
     junction: str
     mb_tail: int
     degree: int
+    levels: Optional[list] = None
 
     @classmethod
     def build(cls, model: CellModel, split_size: int, sp: SpatialCtx, microbatch: int,
@@ -85,14 +90,17 @@ class SPPipeline:
               local_dp: Optional[int] = None) -> "SPPipeline":
         """``microbatch`` images a micro-batch before the junction; the
         tail's boundary shapes from one meta-device forward."""
-        if levels is not None and len(levels) > 1:
-            raise NotImplementedError(
-                "multi-level spatial parallelism (a --num-spatial-parts list) is "
-                "not ported to PyTorch yet (ROADMAP A11)")
         su = model.spatial_until
         if not 0 < su < len(model.cells):
             raise ValueError(f"spatial_until={su} must split the {len(model.cells)} cells")
-        degree = junction_degree(sp, local_dp) if junction == "batch_split" else 1
+        if levels is not None:
+            if levels[-1][0] != su:
+                raise ValueError(f"the last level ends at cell {levels[-1][0]}, "
+                                 f"spatial_until is {su}")
+            if levels[0][1] is not sp or sp.rep_h != 1 or sp.rep_w != 1:
+                raise ValueError("level 0 must be sp, the unreplicated grid")
+        sp_last = levels[-1][1] if levels else sp
+        degree = junction_degree(sp_last, local_dp) if junction == "batch_split" else 1
         if microbatch % degree:
             raise ValueError(f"micro-batch {microbatch} not divisible by junction degree "
                              f"{degree}")
@@ -104,11 +112,22 @@ class SPPipeline:
         tail = CellModel(list(model.cells[su:]), model.in_shape, model.num_classes,
                          name=model.name + "_tail")
         tail_part = StagePartition.build(tail, split_size, shape, balance=balance)
-        return cls(model, su, sp, tail_part, junction, mb_tail, degree)
+        return cls(model, su, sp, tail_part, junction, mb_tail, degree, levels)
+
+    @property
+    def sp_last(self) -> SpatialCtx:
+        return self.levels[-1][1] if self.levels else self.sp
 
     def region_params(self) -> List[torch.Tensor]:
         return [p for cell in self.model.cells[:self.spatial_until]
                 for p in cell.parameters() if p.requires_grad]
+
+    def replicated_region_params(self) -> set:
+        """ids of the region's parameters on degenerate levels."""
+        tiled = {id(p) for cell in active_region_cells(self.model, self.spatial_until,
+                                                        self.levels)
+                 for p in cell.parameters()}
+        return {id(p) for p in self.region_params() if id(p) not in tiled}
 
 
 def init_sp_pipeline_state(spp: SPPipeline, optimizer: Optimizer, stages) -> TrainState:
@@ -179,6 +198,9 @@ def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
                         bn_shards=spp.degree if (tiles.folded and spp.junction == "batch_split")
                         else 1)
     region = spp.region_params()
+    # Under gather a degenerate level's gradients are complete on every
+    # tile rank of a stage (spatial.py's region rule).
+    replicated = spp.replicated_region_params() if spp.junction == "gather" else set()
     params = region + local_params(part, stages)
     seed = loss_scale / denom
     t = 1 if tiles.folded else tiles.tiles
@@ -199,7 +221,7 @@ def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
             with scope("sp_region"):
                 act, sp_last = apply_spatial_region(
                     spp.model, tiles.scatter(x[s * chunk:(s + 1) * chunk]), c, su,
-                    remat=remat)
+                    remat=remat, levels=spp.levels, junction=spp.junction)
             outs.append(apply_junction(act, sp_last, spp.junction, local_dp))
             sinks.append(c.bn_sink)
         with scope("stage_lineup"):
@@ -217,7 +239,7 @@ def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
         B = labels.shape[0]
         chunk = B // S
         if spp.junction == "batch_split" and ranks:
-            k = junction_shard_index(sp, spp.degree)
+            k = junction_shard_index(spp.sp_last, spp.degree)
             labels = labels.reshape(S, spp.degree, chunk // spp.degree)[:, k].reshape(-1)
         return labels
 
@@ -266,7 +288,8 @@ def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
                 sp_st = [v for mv in sp_stats.values() for v in mv]
                 all_reduce_scaled_(
                     region_grads + sp_st + metrics,
-                    [sp_scale / loss_scale] * len(region_grads)
+                    [(sp_scale / t if id(p) in replicated else sp_scale) / loss_scale
+                     for p in region]
                     + [1.0 / (d_size * S * t)] * len(sp_st)
                     + [1.0 / (d_size * t)] * 2, dist.group.WORLD)
                 tail_st = [v for mv in tail_stats.values() for v in mv]

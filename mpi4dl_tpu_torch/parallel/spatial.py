@@ -1,5 +1,5 @@
 """The spatial-parallel region and its junction into the replicated tail
-(counterpart of ``mpi4dl_tpu/parallel/spatial.py``, one level).
+(counterpart of ``mpi4dl_tpu/parallel/spatial.py``).
 
 :func:`apply_spatial_model` runs a CellModel's leading cells on tiles
 (halo-exchanging convs and pools, cross-tile BatchNorm), crosses the
@@ -9,8 +9,15 @@ every rank, on the one-process grid once.  The ``batch_split`` junction
 (``--local-DP``, degree ``local_dp``) hands each tile device a batch shard
 of the full activation instead, one all_to_all when every device takes its
 own shard; on the one-process grid the tail runs the whole batch with
-per-shard BatchNorm statistics (``ApplyCtx.bn_shards``).  Left out
-(ROADMAP A11): multi-level SP and ``respatial``.
+per-shard BatchNorm statistics (``ApplyCtx.bn_shards``).
+
+Multi-level SP: ``levels`` is a list of ``(stop_cell, SpatialCtx)``
+(``layer_ctx.spatial_levels_for``), later levels on coarser grids of the
+same ranks; between levels the activation moves by :func:`respatial`.  A
+fully degenerate level (grid 1x1, e.g. the tail of a ``4,1`` chain) runs
+unsharded on the whole image, like the tail: the move into it is the
+junction's gather (``batch_split``: with the exact adjoint) and its
+gradients are reduced as the tail's are.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ import torch
 from mpi4dl_tpu_torch.cells import CellModel
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
 from mpi4dl_tpu_torch.obs.scopes import scope
+from mpi4dl_tpu_torch.parallel import tiles as _tiles
+
+Levels = List[Tuple[int, SpatialCtx]]
 
 
 def gather_spatial(x, sp: SpatialCtx):
@@ -39,10 +49,10 @@ def tile_device_count(sp: SpatialCtx) -> int:
 
 
 def junction_degree(sp: SpatialCtx, local_dp: Optional[int]) -> int:
-    """The ``batch_split`` degree: ``local_dp``, else the tile count; it
-    must divide the tile devices (``spatial.py:106-120``)."""
+    """The ``batch_split`` degree: ``local_dp``, else the last level's tile
+    count; it must divide the tile devices (``spatial.py:106-120, 196``)."""
     total = tile_device_count(sp)
-    degree = local_dp or total
+    degree = local_dp or sp.grid_h * sp.grid_w
     if not (1 <= degree <= total and total % degree == 0):
         raise ValueError(f"--local-DP {degree} must divide the {total} tile devices")
     return degree
@@ -67,7 +77,17 @@ def can_all_to_all_junction(sp: SpatialCtx, degree: int) -> bool:
 def apply_junction(x, sp_last: SpatialCtx, junction: str = "gather",
                    local_dp: Optional[int] = None):
     """The SP→LP junction: ``gather`` (the full activation everywhere) or
-    ``batch_split`` (this device's batch shard, ``spatial.py:188-214``)."""
+    ``batch_split`` (this device's batch shard, ``spatial.py:188-214``).
+    After a degenerate last level the activation is already whole: the
+    gather is the identity, the batch split a slice."""
+    if not sp_last.active:
+        if junction == "batch_split" and not sp_last.tiles.folded:
+            degree = junction_degree(sp_last, local_dp)
+            k = junction_shard_index(sp_last, degree)
+            return _tiles._map_act(lambda t: t.chunk(degree)[k], x)
+        if junction not in ("gather", "batch_split"):
+            raise ValueError(f"unknown junction {junction!r}")
+        return x
     if junction == "batch_split":
         degree = junction_degree(sp_last, local_dp)
         n = (x[0] if isinstance(x, tuple) else x).shape[0]
@@ -97,14 +117,58 @@ def tail_ctx(ctx: ApplyCtx, sp_last: SpatialCtx, junction: str,
     return c
 
 
+def respatial(x, sp_from: SpatialCtx, sp_to: SpatialCtx, junction: str = "gather"):
+    """Move an activation from level ``sp_from``'s tiles to ``sp_to``'s
+    (``spatial.py:283-333``; ``parallel/tiles.respatial``).  Into a
+    degenerate level the move is the gather: with ``gather``, whose ranks
+    then hold the whole loss, each keeps its own tile's cotangent; with
+    ``batch_split`` the cotangents are summed over the ranks."""
+    if not sp_to.active:
+        if junction == "batch_split" and not sp_from.tiles.folded:
+            return sp_from.tiles.gather_exact(x)
+        return sp_from.tiles.gather(x)
+    return _tiles.respatial(x, sp_from.tiles, sp_to.tiles)
+
+
 def apply_spatial_region(model: CellModel, x, ctx: ApplyCtx, stop: int,
-                         remat=False) -> Tuple[object, SpatialCtx]:
-    """Cells [0, stop) under ``ctx.spatial``; the activation stays tiled."""
-    if stop < 1:
-        raise ValueError(f"empty spatial region [0, {stop})")
-    with scope("sp_level0"):
-        x = model(x, ctx, remat=remat, start=0, stop=stop)
-    return x, ctx.spatial
+                         remat=False, levels: Optional[Levels] = None,
+                         junction: str = "gather") -> Tuple[object, SpatialCtx]:
+    """Cells [0, stop) level by level (``spatial.py:335-380``), the
+    activation moved by :func:`respatial` between levels; it stays in the
+    last level's layout, which is returned with it.  A degenerate level
+    runs with ``spatial=None``: no halo, no kernel, whole-image
+    statistics."""
+    if levels is None:
+        levels = [(stop, ctx.spatial)]
+    if levels[-1][0] != stop:
+        raise ValueError(f"the last level ends at cell {levels[-1][0]}, the region "
+                         f"at {stop}")
+    start, prev = 0, None
+    for li, (lstop, sp_l) in enumerate(levels):
+        if lstop <= start:
+            raise ValueError(f"empty spatial level [{start}, {lstop})")
+        if prev is not None:
+            with scope(f"respatial_l{li}"):
+                x = respatial(x, prev, sp_l, junction)
+        c = ctx.with_spatial(sp_l if sp_l.active else None)
+        with scope(f"sp_level{li}"):
+            x = model(x, c, remat=remat, start=start, stop=lstop)
+        start, prev = lstop, sp_l
+    return x, prev
+
+
+def active_region_cells(model: CellModel, stop: int, levels: Optional[Levels]):
+    """The cells that run on tiles: those of the active levels (the
+    gradient of a degenerate level's cells is complete on every rank, like
+    the tail's)."""
+    if levels is None:
+        return list(model.cells[:stop])
+    out, start = [], 0
+    for lstop, sp_l in levels:
+        if sp_l.active:
+            out += list(model.cells[start:lstop])
+        start = lstop
+    return out
 
 
 @torch.no_grad()
@@ -160,19 +224,23 @@ def choose_spatial_until(shapes, tiles: int, itemsize: int = 2) -> int:
 def apply_spatial_model(model: CellModel, x, ctx: ApplyCtx,
                         spatial_until: Optional[int] = None,
                         junction: str = "gather", remat=False,
-                        local_dp: Optional[int] = None):
-    """Spatial region, junction, tail.  ``x`` is this process's tiles
-    (``sp.tiles.scatter`` of the image); the result is the model's output
-    for the whole batch (``gather``, and ``batch_split`` on the one-process
-    grid) or for this device's shard (``batch_split`` with one tile a
-    rank).  ``spatial_until`` None: ``model.spatial_until``, else every
-    cell but the head (the head pools the whole image)."""
+                        local_dp: Optional[int] = None,
+                        levels: Optional[Levels] = None):
+    """Spatial region (one or more levels), junction, tail.  ``x`` is this
+    process's tiles (``sp.tiles.scatter`` of the image, level 0); the
+    result is the model's output for the whole batch (``gather``, and
+    ``batch_split`` on the one-process grid) or for this device's shard
+    (``batch_split`` with one tile a rank).  ``spatial_until`` None: the
+    last level's stop, else ``model.spatial_until``, else every cell but
+    the head (the head pools the whole image)."""
     sp = ctx.spatial
     if sp is None or not sp.active:
         raise ValueError("apply_spatial_model needs an active SpatialCtx")
     if spatial_until is None:
-        spatial_until = model.spatial_until or (len(model.cells) - 1)
-    x, sp_last = apply_spatial_region(model, x, ctx, spatial_until, remat=remat)
+        spatial_until = (levels[-1][0] if levels else
+                         model.spatial_until or (len(model.cells) - 1))
+    x, sp_last = apply_spatial_region(model, x, ctx, spatial_until, remat=remat,
+                                      levels=levels, junction=junction)
     x = apply_junction(x, sp_last, junction, local_dp)
     return model(x, tail_ctx(ctx, sp_last, junction, local_dp), remat=remat,
                  start=spatial_until)

@@ -18,6 +18,9 @@ iw)`` has index ``ih * grid_w + iw``.  A backend offers:
   tiles and back (the ``gather`` junction).
 - :meth:`batch_split` — the ``batch_split`` junction (``--local-DP``):
   the tiles to this device's batch shard of the full image.
+- :meth:`level` — the backend of a coarser level of multi-level SP (a
+  ``gh x gw`` grid embedded in this one), and :func:`respatial` — an
+  activation moved from one level's tile layout to another's.
 
 :class:`ProcessGroupTiles` holds one tile per rank of a
 ``torch.distributed`` group (gloo on the CPU, NCCL across cards); shifts
@@ -28,17 +31,31 @@ INTO THE BATCH dimension (tile-major: row ``t * N + n`` is sample ``n`` of
 tile ``t``); shifts are indexing.  Every batch reduction then already
 spans the tiles, so its cross-tile sum is the identity and its count
 factor 1 — BatchNorm sums, K2's statistics and the loss are not counted
-twice.  Per-tile statistics (``--per-tile-bn``) view such a tensor as
+twice (on a replicated level, ``rep`` times in sum and count alike).
+Per-tile statistics (``--per-tile-bn``) view such a tensor as
 ``[T, N, ...]`` (:meth:`TileGrid.per_tile`); after a ``batch_split``
 junction the tail views its batch as ``[degree, N / degree, ...]`` shards
 in the same way (``ApplyCtx.bn_shards``).  It exists so that one card,
 which holds one NCCL rank, can run the engine; the runners never use it
 in place of missing ranks.
+
+Multi-level SP (``--num-spatial-parts 4,2``): a coarser level keeps the
+ranks of level 0, each of its tiles held by ``rep_h x rep_w`` neighbouring
+ranks (``ProcessGroupTiles(..., rep_h, rep_w)``: shifts stride by ``rep``,
+sums count every tile ``rep`` times in numerator and denominator, the
+gather keeps one copy of each tile — its backward hands the cotangent to
+that copy alone).  On :class:`TileGrid` replication belongs to the mesh,
+not to the values, so a coarser level holds each of its tiles ONCE (a
+``TileGrid`` of the coarser grid) and a level change is a regrouping of
+the folded batch; its statistics count each tile ``rep`` times, as the
+mesh's do.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
+
+import os
 
 import torch
 import torch.distributed as dist
@@ -63,14 +80,17 @@ def _map_act(fn, x):
 
 class TileGrid:
     """All tiles of a ``grid_h x grid_w`` grid in one process, folded into
-    the batch dimension."""
+    the batch dimension.  ``rep``: the devices a tile spans on the mesh (a
+    coarser level of multi-level SP); the cross-tile sums and their count
+    take every tile ``rep`` times, as the mesh's do, so that the unbiased
+    running variance (``cnt / (cnt - 1)``) comes out as the JAX package's."""
 
     folded = True
-    count_factor = 1
 
-    def __init__(self, grid_h: int, grid_w: int):
+    def __init__(self, grid_h: int, grid_w: int, rep: int = 1):
         self.grid_h, self.grid_w = int(grid_h), int(grid_w)
         self.tiles = self.grid_h * self.grid_w
+        self.rep = self.count_factor = int(rep)
 
     def _grid_view(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(self.grid_h, self.grid_w, x.shape[0] // self.tiles,
@@ -94,7 +114,7 @@ class TileGrid:
         return x.reshape(self.tiles, x.shape[0] // self.tiles, *x.shape[1:])
 
     def sum_stats(self, *stats: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        return stats
+        return stats if self.rep == 1 else tuple(s * self.rep for s in stats)
 
     def tile_mean(self, t: torch.Tensor) -> torch.Tensor:
         """Mean over the leading tile dim of a per-tile value."""
@@ -124,6 +144,15 @@ class TileGrid:
         row blocks are the shards that the tile devices would hold (a
         replication group's identical copies are one shard here)."""
         return self.gather(x)
+
+    def level(self, grid_h: int, grid_w: int) -> "TileGrid":
+        """A coarser level's grid: each of its tiles once (see the module
+        docstring)."""
+        if self.grid_h % grid_h or self.grid_w % grid_w:
+            raise ValueError(f"a {grid_h}x{grid_w} level does not embed in the "
+                             f"{self.grid_h}x{self.grid_w} grid")
+        return TileGrid(grid_h, grid_w,
+                        self.rep * (self.grid_h // grid_h) * (self.grid_w // grid_w))
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +194,9 @@ class _GatherTiles(torch.autograd.Function):
     tail after the junction runs replicated on the same full activation,
     so each rank's cotangent of the full image is already complete: the
     backward keeps this rank's slice (no sum over ranks, which would count
-    the replicated tail's gradient once per rank)."""
+    the replicated tail's gradient once per rank).  On a replicated level
+    only the copy the gather kept gets it (``_gather_dedup``'s adjoint,
+    ``spatial.py:67-85``); the others get zeros."""
 
     @staticmethod
     def forward(ctx, tiles, x):
@@ -174,7 +205,8 @@ class _GatherTiles(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return None, ctx.tiles._own(g).contiguous()
+        own = ctx.tiles._own(g).contiguous()
+        return None, own if ctx.tiles.primary else torch.zeros_like(own)
 
 
 class _AllToAllJunction(torch.autograd.Function):
@@ -213,38 +245,62 @@ class _GatherSlice(torch.autograd.Function):
         full = g.new_zeros((n * ctx.degree, *g.shape[1:]))
         full[ctx.k * n:(ctx.k + 1) * n] = g
         dist.all_reduce(full, op=dist.ReduceOp.SUM, group=ctx.tiles.group)
-        return None, None, None, ctx.tiles._own(full).contiguous()
+        own = ctx.tiles._own(full).contiguous()
+        return None, None, None, own if ctx.tiles.primary else torch.zeros_like(own)
 
 
 class ProcessGroupTiles:
-    """One tile per rank of ``group`` (``None``: the default group), rank
-    ``r`` of the group holding tile ``r``."""
+    """One tile per rank of ``group`` (``None``: the default group).  The
+    ranks form a ``(grid_h·rep_h) x (grid_w·rep_w)`` device grid, row-major;
+    device ``(ah, aw)`` holds tile ``(ah // rep_h, aw // rep_w)``.  Level 0
+    has ``rep`` 1: rank ``r`` holds tile ``r``.  ``tiles`` counts the ranks
+    (each replicated tile ``rep_h·rep_w`` times), which is what the
+    cross-tile sums and the gradient reduction divide by."""
 
     folded = False
 
-    def __init__(self, grid_h: int, grid_w: int, group=None):
+    def __init__(self, grid_h: int, grid_w: int, group=None, rep_h: int = 1,
+                 rep_w: int = 1):
         self.grid_h, self.grid_w = int(grid_h), int(grid_w)
-        self.tiles = self.grid_h * self.grid_w
+        self.rep_h, self.rep_w = int(rep_h), int(rep_w)
+        self.dev_h, self.dev_w = self.grid_h * self.rep_h, self.grid_w * self.rep_w
+        self.tiles = self.dev_h * self.dev_w
         self.group = group if group is not None else dist.group.WORLD
         size = dist.get_world_size(self.group)
         if size != self.tiles:
-            raise ValueError(f"a {grid_h}x{grid_w} tile grid needs {self.tiles} "
-                             f"ranks, the group has {size}")
+            raise ValueError(f"a {grid_h}x{grid_w} tile grid (rep {rep_h}x{rep_w}) "
+                             f"needs {self.tiles} ranks, the group has {size}")
         self.rank = dist.get_rank(self.group)
-        self.ih, self.iw = divmod(self.rank, self.grid_w)
+        self.ah, self.aw = divmod(self.rank, self.dev_w)
+        self.ih, self.iw = self.ah // self.rep_h, self.aw // self.rep_w
+        # The copy of its tile that a gather keeps.
+        self.primary = self.ah % self.rep_h == 0 and self.aw % self.rep_w == 0
 
     @property
     def count_factor(self) -> int:
         return self.tiles
 
+    def level(self, grid_h: int, grid_w: int) -> "ProcessGroupTiles":
+        """The same ranks as a coarser ``grid_h x grid_w`` level, each tile
+        replicated over the ranks it spans (``layer_ctx.py:183-202``)."""
+        if self.dev_h % grid_h or self.dev_w % grid_w:
+            raise ValueError(f"a {grid_h}x{grid_w} level does not embed in the "
+                             f"{self.dev_h}x{self.dev_w} ranks")
+        return ProcessGroupTiles(grid_h, grid_w, self.group, self.dev_h // grid_h,
+                                 self.dev_w // grid_w)
+
+    def _device_rank(self, ah: int, aw: int) -> int:
+        return dist.get_global_rank(self.group, ah * self.dev_w + aw)
+
     def _neighbour(self, axis: str, step: int):
-        """Group rank of the tile ``step`` places along ``axis``, or None
-        beyond the grid's border."""
+        """Group rank of the device holding the tile ``step`` places along
+        ``axis`` at this rank's place in its replication group (``rep``
+        devices a tile: ``halo.py:55-75``), or None beyond the border."""
         if _axis_index(axis) == 0:
-            ih = self.ih + step
-            return ih * self.grid_w + self.iw if 0 <= ih < self.grid_h else None
-        iw = self.iw + step
-        return self.ih * self.grid_w + iw if 0 <= iw < self.grid_w else None
+            ah = self.ah + step * self.rep_h
+            return ah * self.dev_w + self.aw if 0 <= ah < self.dev_h else None
+        aw = self.aw + step * self.rep_w
+        return self.ah * self.dev_w + aw if 0 <= aw < self.dev_w else None
 
     def _p2p_shift(self, x: torch.Tensor, axis: str, step: int) -> torch.Tensor:
         """Send ``x`` to the tile ``step`` places on, return what the tile
@@ -271,7 +327,8 @@ class ProcessGroupTiles:
         return _Shift.apply(self, axis, step, x)
 
     def sum_stats(self, *stats: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """Cross-tile sums of local statistics, in one all-reduce."""
+        """Cross-tile sums of local statistics, in one all-reduce (every
+        replicated tile counted ``rep`` times, as its count is)."""
         flat = _AllReduceSum.apply(self.group, torch.cat([s.reshape(-1) for s in stats]))
         return tuple(flat.split([s.numel() for s in stats]))
 
@@ -282,12 +339,18 @@ class ProcessGroupTiles:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t / self.tiles
 
-    def _assemble(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's tile, all-gathered into the full image."""
+    def _all_parts(self, x: torch.Tensor):
         parts = [torch.empty_like(x) for _ in range(self.tiles)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
-        rows = [torch.cat(parts[r * self.grid_w:(r + 1) * self.grid_w], dim=2)
-                for r in range(self.grid_h)]
+        return parts
+
+    def _assemble(self, x: torch.Tensor) -> torch.Tensor:
+        """Every tile, all-gathered into the full image (one copy of each
+        replicated tile)."""
+        parts = self._all_parts(x)
+        rows = [torch.cat([parts[ah * self.dev_w + aw]
+                           for aw in range(0, self.dev_w, self.rep_w)], dim=2)
+                for ah in range(0, self.dev_h, self.rep_h)]
         return torch.cat(rows, dim=1)
 
     def _own(self, t: torch.Tensor) -> torch.Tensor:
@@ -325,7 +388,262 @@ class ProcessGroupTiles:
     def batch_split(self, x, degree: int, shard: int):
         """The ``batch_split`` junction: batch shard ``shard`` of ``degree``
         of the full image (this rank's); one all_to_all when every rank
-        takes its own shard, else gather and slice."""
-        if degree == self.tiles:
+        takes its own shard of an unreplicated level, else gather and
+        slice."""
+        if degree == self.tiles and self.rep_h == self.rep_w == 1:
             return _map_act(lambda t: _AllToAllJunction.apply(self, t), x)
         return _map_act(lambda t: _GatherSlice.apply(self, shard, degree, t), x)
+
+    def gather_exact(self, x):
+        """The full image with the exact adjoint (the cotangents summed over
+        the ranks): a transition into a degenerate level whose ranks each
+        see a part of the loss (the ``batch_split`` tail)."""
+        return _map_act(lambda t: _GatherSlice.apply(self, 0, 1, t), x)
+
+
+# ---------------------------------------------------------------------------
+# Level transitions (multi-level SP).
+# ---------------------------------------------------------------------------
+
+
+def respatial_fast_enabled() -> bool:
+    """``MPI4DL_NO_RESPATIAL_FAST=1`` sends every transition through the
+    gather path (``spatial.py:217-226``)."""
+    return os.environ.get("MPI4DL_NO_RESPATIAL_FAST", "0") != "1"
+
+
+def _axis_pos(t: ProcessGroupTiles, d: int) -> int:
+    return t.ah if d == 0 else t.aw
+
+
+def _axis_rank(t: ProcessGroupTiles, d: int, a: int) -> int:
+    """Global rank of the device at index ``a`` along axis ``d`` in this
+    rank's row (``d`` 1) or column (``d`` 0)."""
+    return t._device_rank(a, t.aw) if d == 0 else t._device_rank(t.ah, a)
+
+
+class _RefineSlice(torch.autograd.Function):
+    """Refinement (``g_to = k·g_from``): the new tile is a slice of the
+    source tile this rank holds — no communication; the backward pads the
+    cotangent back (``_respatial_refine_slice``, ``spatial.py:228-237``)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, off, local):
+        ctx.dim, ctx.off, ctx.n = dim, off, x.shape[dim]
+        return x.narrow(dim, off * local, local).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        shape = list(g.shape)
+        shape[ctx.dim] = ctx.n
+        out = g.new_zeros(shape)
+        out.narrow(ctx.dim, ctx.off * g.shape[ctx.dim], g.shape[ctx.dim]).copy_(g)
+        return out, None, None, None
+
+
+class _CoarsenRing(torch.autograd.Function):
+    """Coarsening from an unreplicated level (``g_from = k·g_to``, ``r_from
+    = 1``): the ``k`` ranks whose source tiles make one target tile pass
+    them round in ``k - 1`` group-cyclic shifts, one ``batch_isend_irecv``
+    each, every rank placing what it receives at the sender's position
+    (``_respatial_coarsen_ring``, ``spatial.py:240-280``).  The backward is
+    the exact adjoint: each received piece's cotangent goes back to its
+    sender, and a tile's gradient is the sum of its ``k`` copies'."""
+
+    @staticmethod
+    def forward(ctx, tiles, dim, k, x):
+        d = dim - 1
+        a = _axis_pos(tiles, d)
+        base, pos0 = (a // k) * k, a % k
+        peers = [(_axis_rank(tiles, d, base + (pos0 + h) % k),
+                  _axis_rank(tiles, d, base + (pos0 - h) % k)) for h in range(1, k)]
+        ctx.tiles, ctx.dim, ctx.k, ctx.pos0, ctx.peers = tiles, dim, k, pos0, peers
+        x = x.contiguous()
+        L = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = k * L
+        out = x.new_zeros(shape)
+        out.narrow(dim, pos0 * L, L).copy_(x)
+        for h, (to, frm) in enumerate(peers, start=1):
+            recv = torch.empty_like(x)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, to, tiles.group),
+                    dist.P2POp(dist.irecv, recv, frm, tiles.group)]):
+                req.wait()
+            out.narrow(dim, ((pos0 - h) % k) * L, L).copy_(recv)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, k, pos0 = ctx.dim, ctx.k, ctx.pos0
+        L = g.shape[dim] // k
+        dx = g.narrow(dim, pos0 * L, L).contiguous().clone()
+        for h, (to, frm) in enumerate(ctx.peers, start=1):
+            piece = g.narrow(dim, ((pos0 - h) % k) * L, L).contiguous()
+            recv = torch.empty_like(piece)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, piece, frm, ctx.tiles.group),
+                    dist.P2POp(dist.irecv, recv, to, ctx.tiles.group)]):
+                req.wait()
+            dx += recv
+        return None, None, None, dx
+
+
+class _GatherAxis(torch.autograd.Function):
+    """The full extent of one dim from the source level (one copy of each
+    replicated tile), then this rank's target tile of it (``full[idx·local:
+    (idx+1)·local]``, the whole extent when ``g_to`` is 1): the gather path
+    of ``respatial`` (``spatial.py:311-318``).  Only this rank's row
+    (column) of ranks takes part, in one ``batch_isend_irecv``: each kept
+    copy sends its tile to the ranks of the line whose target tile it
+    overlaps.  The backward is the exact adjoint, a reduce-scatter over the
+    line: every rank sends each kept copy the part of its cotangent that
+    falls in that copy's tile, the kept copy sums them in line order, and
+    the other copies get zeros."""
+
+    @staticmethod
+    def forward(ctx, src, dim, g_to, r_to, x):
+        x = x.contiguous()
+        plan = _LinePlan(src, dim - 1, g_to, r_to, x.shape[dim])
+        ctx.plan, ctx.dim, ctx.shape = plan, dim, x.shape
+        pieces, ops = {}, []
+        if plan.kept:
+            for b in plan.readers(plan.own):
+                ops.append(plan.op(dist.isend, x, b))
+        for j in plan.overlapped(plan.a):
+            if j == plan.own and plan.kept:
+                pieces[j] = x
+            else:
+                pieces[j] = torch.empty_like(x)
+                ops.append(plan.op(dist.irecv, pieces[j], j * plan.rep))
+        _wait_all(ops)
+        js = sorted(pieces)
+        full = torch.cat([pieces[j] for j in js], dim=dim)
+        return full.narrow(dim, plan.start(plan.a) - js[0] * plan.L, plan.local).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        plan, dim = ctx.plan, ctx.dim
+        L, s = plan.L, plan.start(plan.a)
+        mine, ops = None, []
+        for j in plan.overlapped(plan.a):
+            lo, hi = max(s, j * L), min(s + plan.local, (j + 1) * L)
+            if hi - lo == L:
+                blk = g.narrow(dim, lo - s, L).contiguous()
+            else:
+                blk = g.new_zeros(ctx.shape)
+                blk.narrow(dim, lo - j * L, hi - lo).copy_(g.narrow(dim, lo - s, hi - lo))
+            if j == plan.own and plan.kept:
+                mine = blk
+            else:
+                ops.append(plan.op(dist.isend, blk, j * plan.rep))
+        parts = {}
+        if plan.kept:
+            for b in plan.readers(plan.own, with_self=True):
+                if b == plan.a:
+                    parts[b] = mine
+                else:
+                    parts[b] = g.new_empty(ctx.shape)
+                    ops.append(plan.op(dist.irecv, parts[b], b))
+        _wait_all(ops)
+        if not plan.kept:
+            return None, None, None, None, g.new_zeros(ctx.shape)
+        dx = None
+        for b in sorted(parts):
+            dx = parts[b] if dx is None else dx + parts[b]
+        return None, None, None, None, dx
+
+
+class _LinePlan:
+    """Who holds and who reads what along one dim ``d`` for
+    :class:`_GatherAxis`: line position ``b`` is the device index along
+    ``d`` in this rank's row (column); source piece ``j`` (``L`` long,
+    ``[j·L, (j+1)·L)`` of the extent) is held by its kept copy at position
+    ``j·rep``; position ``b``'s target tile is ``[start(b), start(b) +
+    local)``."""
+
+    def __init__(self, src: "ProcessGroupTiles", d: int, g_to: int, r_to: int, L: int):
+        self.src, self.d, self.L, self.r_to = src, d, L, r_to
+        self.rep = src.rep_h if d == 0 else src.rep_w
+        self.grid = src.grid_h if d == 0 else src.grid_w
+        self.local = self.grid * L // g_to
+        self.line = _line_ranks(src, d)
+        self.a = _axis_pos(src, d)
+        self.kept = self.a % self.rep == 0
+        self.own = self.a // self.rep
+
+    def start(self, b: int) -> int:
+        return (b // self.r_to) * self.local
+
+    def _overlaps(self, b: int, j: int) -> bool:
+        s = self.start(b)
+        return j * self.L < s + self.local and s < (j + 1) * self.L
+
+    def overlapped(self, b: int):
+        """The source pieces that position ``b``'s target tile overlaps."""
+        return [j for j in range(self.grid) if self._overlaps(b, j)]
+
+    def readers(self, j: int, with_self: bool = False):
+        """The positions whose target tile overlaps piece ``j``."""
+        return [b for b in range(len(self.line))
+                if self._overlaps(b, j) and (with_self or b != self.a)]
+
+    def op(self, fn, t: torch.Tensor, b: int):
+        return dist.P2POp(fn, t, dist.get_global_rank(self.src.group, self.line[b]),
+                          self.src.group)
+
+
+def _wait_all(ops) -> None:
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _line_ranks(t: ProcessGroupTiles, d: int):
+    """Group ranks of this rank's column (``d`` 0) or row (``d`` 1) of the
+    device grid, in order."""
+    if d == 0:
+        return [ah * t.dev_w + t.aw for ah in range(t.dev_h)]
+    return [t.ah * t.dev_w + aw for aw in range(t.dev_w)]
+
+
+def respatial(x, src, dst):
+    """Move an activation from level ``src``'s tile layout to level
+    ``dst``'s (``respatial``, ``spatial.py:283-333``), dim by dim (H, then
+    W): a refinement is a local slice, a coarsening from an unreplicated
+    level the ring of ``k - 1`` shifts, anything else gathers the dim's
+    full extent and slices the target tile (``MPI4DL_NO_RESPATIAL_FAST=1``:
+    always).  Every path is an ``autograd.Function`` with its exact
+    adjoint.  On :class:`TileGrid` the move is a regrouping of the folded
+    batch: the source level's full image cut into the target's tiles."""
+    if src.folded:
+        full = src.gather(x)
+        return full if (dst.grid_h, dst.grid_w) == (1, 1) else dst.scatter(full)
+    if src.tiles != dst.tiles:
+        raise ValueError(f"levels on {src.tiles} and {dst.tiles} ranks")
+    fast = respatial_fast_enabled()
+
+    def dim_pass(t, cur, d):
+        """Dim ``d`` of ``t`` (laid out as ``cur``) to the target's layout;
+        returns the tensor and its new layout."""
+        g_from, r_from = (cur.grid_h, cur.rep_h) if d == 0 else (cur.grid_w, cur.rep_w)
+        g_to, r_to = (dst.grid_h, dst.rep_h) if d == 0 else (dst.grid_w, dst.rep_w)
+        if g_from == g_to:
+            return t, cur
+        dim = d + 1
+        nxt = (ProcessGroupTiles(g_to, cur.grid_w, cur.group, r_to, cur.rep_w) if d == 0
+               else ProcessGroupTiles(cur.grid_h, g_to, cur.group, cur.rep_h, r_to))
+        if fast and g_to > g_from and g_to % g_from == 0:
+            k = g_to // g_from
+            a = _axis_pos(cur, d)
+            off = a // r_to - (a // r_from) * k
+            return _RefineSlice.apply(t, dim, off, t.shape[dim] // k), nxt
+        if fast and g_to > 1 and r_from == 1 and g_from % g_to == 0:
+            return _CoarsenRing.apply(cur, dim, g_from // g_to, t), nxt
+        return _GatherAxis.apply(cur, dim, g_to, r_to, t), nxt
+
+    def move(t):
+        t, cur = dim_pass(t, src, 0)
+        return dim_pass(t, cur, 1)[0]
+
+    return _map_act(move, x)

@@ -4,15 +4,17 @@
 metrics)``, as its JAX counterpart does; PyTorch runs eagerly, so the
 step updates the model's parameters and running statistics in place.
 With a data axis it trains on its replica's slice of the batch (DP).
-:func:`make_spatial_train_step` is the spatial-parallel step (one level,
-``gather`` or ``batch_split`` junction, with or without a data axis); the
-pipeline steps are ``parallel/pipeline.py``, GEMS ``parallel/gems.py`` and
-SP x PP / SP + GEMS ``parallel/sp_pipeline.py``.
+:func:`make_spatial_train_step` is the spatial-parallel step (one level or
+a multi-level chain, ``gather`` or ``batch_split`` junction, with or
+without a data axis); ``remat`` takes the JAX levels (cell, "sqrt",
+"fine").  The pipeline steps are ``parallel/pipeline.py``, GEMS
+``parallel/gems.py`` and SP x PP / SP + GEMS ``parallel/sp_pipeline.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -24,7 +26,7 @@ from mpi4dl_tpu_torch.distributed import all_reduce_scaled_
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
 from mpi4dl_tpu_torch.layers import BatchNorm
 from mpi4dl_tpu_torch.parallel.spatial import (
-    apply_spatial_model, junction_degree, junction_shard_index,
+    active_region_cells, apply_spatial_model, junction_degree, junction_shard_index,
 )
 
 
@@ -190,7 +192,10 @@ def make_train_step(model: CellModel, optimizer: Optimizer, parts: int = 1,
 
     ``parts > 1`` accumulates gradients over micro-batches and averages the
     per-micro-batch running-statistics updates (``train.py:257-286``).
-    ``remat`` True/"cell" checkpoints each cell.  ``pallas_conv`` routes
+    ``remat`` True/"cell" checkpoints each cell, "sqrt" runs ~√n groups of
+    per-cell checkpoints under an outer one, "fine" adds a checkpoint per
+    op inside composite cells (``train.py:205-245``; ``MPI4DL_REMAT_OPS=1``
+    adds those to any level).  ``pallas_conv`` routes
     eligible convs and [ReLU, Conv2d, BatchNorm] windows through the
     hand-written K1/K2 kernels (``ops/halo_conv.py``).
     ``with_data_axis`` (a :class:`~mpi4dl_tpu_torch.mesh.DataAxis`): DP —
@@ -202,8 +207,9 @@ def make_train_step(model: CellModel, optimizer: Optimizer, parts: int = 1,
     ctx = ApplyCtx(
         train=True,
         spatial=SpatialCtx(use_pallas_conv=True) if pallas_conv else None,
+        remat_ops=remat == "fine" or os.environ.get("MPI4DL_REMAT_OPS") == "1",
     )
-    loss_fn = make_loss_fn(model, ctx, remat=remat)
+    loss_fn = make_loss_fn(model, ctx, remat="sqrt" if remat == "sqrt" else bool(remat))
     params = [p for p in model.parameters() if p.requires_grad]
     data = with_data_axis
 
@@ -222,7 +228,13 @@ def make_train_step(model: CellModel, optimizer: Optimizer, parts: int = 1,
                                          data_shard(labels, data))
 
 
-def _spatial_until(model: CellModel, spatial_until: Optional[int]) -> int:
+def _spatial_until(model: CellModel, spatial_until: Optional[int],
+                   levels=None) -> int:
+    if levels:
+        if spatial_until is not None and spatial_until != levels[-1][0]:
+            raise ValueError(f"spatial_until {spatial_until} but the last level "
+                             f"ends at cell {levels[-1][0]}")
+        spatial_until = levels[-1][0]
     su = spatial_until or model.spatial_until or (len(model.cells) - 1)
     if not 1 <= su < len(model.cells):
         raise ValueError(f"spatial_until {su} outside [1, {len(model.cells) - 1}]")
@@ -254,14 +266,16 @@ def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
                             spatial_until: Optional[int] = None,
                             junction: str = "gather", remat=False,
                             local_dp: Optional[int] = None,
-                            with_data_axis=None):
-    """Spatial-parallel (SP [+DP]) training step (``train.py:335-488``, one
-    level): ``step(state, x, labels)`` takes the global batch of images,
+                            with_data_axis=None, levels=None):
+    """Spatial-parallel (SP [+DP]) training step (``train.py:335-488``):
+    ``step(state, x, labels)`` takes the global batch of images,
     keeps this replica's slice under ``with_data_axis``, cuts this
     process's tiles from it (``sp.tiles.scatter``), runs cells [0,
     spatial_until) on the tiles, crosses the junction (``gather``, or
     ``batch_split`` of degree ``local_dp``, default the tile count), runs
-    the tail, and updates the parameters.
+    the tail, and updates the parameters.  ``levels`` (a list of
+    ``(stop_cell, SpatialCtx)``, ``sp`` its level 0) runs multi-level SP:
+    the region level by level, ``spatial_until`` the last level's stop.
 
     Gradients, as the JAX step's pmean of every gradient over (data, sph,
     spw) (:397-402, :460):
@@ -273,7 +287,10 @@ def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
       adjoint undoes).  The region's gradients hold one tile's share each
       and are summed over the tile ranks; the tail's are averaged over
       them, which forces the replicas to agree whatever the card's
-      rounding.
+      rounding.  On a replicated level the gather (and every transition)
+      hands a tile's cotangent to one copy, the others seeing only their
+      share through the cross-tile statistics, so the sum counts each
+      tile once; a degenerate level's cells are reduced as the tail's.
     - ``batch_split``: each tile device's loss is that of its shard; the
       junction's backward is the exact adjoint (the reverse all_to_all), so
       the sum over the tile ranks of every gradient is the gradient of the
@@ -288,9 +305,12 @@ def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
     convs and K2 windows through the kernels."""
     if sp is None or not sp.active or sp.tiles is None:
         raise ValueError("make_spatial_train_step needs an active SpatialCtx with tiles")
+    if levels is not None and levels[0][1] is not sp:
+        raise ValueError("sp must be the levels' level 0")
+    sp_last = levels[-1][1] if levels else sp
     if junction == "batch_split":
-        junction_degree(sp, local_dp)
-    su = _spatial_until(model, spatial_until)
+        junction_degree(sp_last, local_dp)
+    su = _spatial_until(model, spatial_until, levels)
     ctx = ApplyCtx(train=True, spatial=sp)
     params = [p for p in model.parameters() if p.requires_grad]
     data = with_data_axis
@@ -298,10 +318,11 @@ def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
     def grads_for(x, labels):
         c = dataclasses.replace(ctx, bn_sink={})
         logits = apply_spatial_model(model, sp.tiles.scatter(x.to(compute_dtype)), c,
-                                     su, junction, remat=remat, local_dp=local_dp)
+                                     su, junction, remat=remat, local_dp=local_dp,
+                                     levels=levels)
         if isinstance(logits, tuple):
             logits = logits[0]
-        labels = _shard_labels(labels, sp, junction, local_dp)
+        labels = _shard_labels(labels, sp_last, junction, local_dp)
         loss = cross_entropy(logits, labels)
         grads = torch.autograd.grad(loss, params)
         return loss.detach(), logits.detach(), labels, c.bn_sink, list(grads)
@@ -311,7 +332,8 @@ def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
     if group is not None:
         d = data.size if data is not None else 1
         t = 1 if sp.tiles.folded else sp.tiles.tiles
-        region_ids = {id(p) for cell in model.cells[:su] for p in cell.parameters()}
+        region_ids = {id(p) for cell in active_region_cells(model, su, levels)
+                      for p in cell.parameters()}
         region_scale = 1.0 / (d * (t if junction == "batch_split" else 1))
         scales = [region_scale if id(p) in region_ids else 1.0 / (d * t) for p in params]
         reduce = _reducer(group, scales, 1.0 / (d * t))
@@ -327,12 +349,14 @@ def make_spatial_eval_step(model: CellModel, sp: SpatialCtx,
                            spatial_until: Optional[int] = None,
                            junction: str = "gather",
                            local_dp: Optional[int] = None,
-                           with_data_axis=None):
+                           with_data_axis=None, levels=None):
     """Spatial-parallel inference step ``(x, labels) -> metrics`` (the
     global batch in; BatchNorm uses the running statistics); loss and
     accuracy are averaged over the step's ranks.  ``logits`` are this
-    device's (its shard's under ``batch_split`` with one tile a rank)."""
-    su = _spatial_until(model, spatial_until)
+    device's (its shard's under ``batch_split`` with one tile a rank).
+    ``levels`` as in :func:`make_spatial_train_step`."""
+    su = _spatial_until(model, spatial_until, levels)
+    sp_last = levels[-1][1] if levels else sp
     ctx = ApplyCtx(train=False, spatial=sp)
     data = with_data_axis
     group = _sp_group(sp, data)
@@ -341,10 +365,10 @@ def make_spatial_eval_step(model: CellModel, sp: SpatialCtx,
     def estep(x, labels):
         x, labels = data_shard(x, data), data_shard(labels, data)
         logits = apply_spatial_model(model, sp.tiles.scatter(x.to(compute_dtype)),
-                                     ctx, su, junction, local_dp=local_dp)
+                                     ctx, su, junction, local_dp=local_dp, levels=levels)
         if isinstance(logits, tuple):
             logits = logits[0]
-        labels = _shard_labels(labels, sp, junction, local_dp)
+        labels = _shard_labels(labels, sp_last, junction, local_dp)
         metrics = {"loss": cross_entropy(logits, labels),
                    "accuracy": accuracy(logits, labels)}
         _mean_metrics(metrics, group)

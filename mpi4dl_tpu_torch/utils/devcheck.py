@@ -27,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import math
 
 
 import torch
@@ -130,16 +131,22 @@ def replay_units(model, run, dev):
 
 def engine_run(dev, engine, *, arch="resnet", image=32, batch=4, micro=1, split=2,
                times=1, parts=1, schedule="gpipe", dtype=torch.float32, pallas=False,
-               spatial_until=2, steps=2):
+               spatial_until=2, steps=2, levels=None, kernel_cells=None):
     """``steps`` SGD steps (lr 0.01) from seed-0 weights on a seeded batch of
     ``batch`` images, ``micro`` a micro-batch: ``engine`` ``"single"`` (the
     single-card step accumulated over ``batch // micro`` micro-batches),
     ``"gems"`` (``split`` stages on the chain, ``times`` x 2 x ``parts``),
     ``"sp_pp"`` or ``"sp_gems"`` (a 1x2 grid, D1, the gather junction after
-    cell ``spatial_until``, ``split`` tail stages).  ResNet-11 v2, or
-    AmoebaNet-D(3, 32); ``dtype`` float64 runs the model in float64 (the
-    kernels off).  Returns (losses, state dict on the host)."""
-    from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
+    cell ``spatial_until``, ``split`` tail stages), ``"sp"`` (the SP step
+    over ``batch // micro`` micro-batches).  ``levels`` ``(slice method,
+    parts list, stops)`` runs the spatial engines multi-level on the
+    one-process grid of ``parts[0]`` tiles (the junction after the last
+    stop).  ResNet-11 v2, or AmoebaNet-D(3, 32); ``dtype`` float64 runs the
+    model in float64 (the kernels off).  ``kernel_cells`` (``"single"``
+    with ``pallas``): only the cells before it take the kernels, the rest
+    run unsharded without them, as an SP step's degenerate levels and tail
+    do.  Returns (losses, state dict on the host)."""
+    from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for, spatial_levels_for
     from mpi4dl_tpu_torch.models import amoebanetd, get_resnet_v2
     from mpi4dl_tpu_torch.parallel.gems import make_gems_train_step
     from mpi4dl_tpu_torch.parallel.partition import StagePartition
@@ -150,7 +157,9 @@ def engine_run(dev, engine, *, arch="resnet", image=32, batch=4, micro=1, split=
     )
     from mpi4dl_tpu_torch.parallel.stages import StageChain
     from mpi4dl_tpu_torch.parallel.tiles import TileGrid
-    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_train_step
+    from mpi4dl_tpu_torch.train import (
+        Optimizer, TrainState, make_spatial_train_step, make_train_step,
+    )
 
     shape = (batch, image, image, 3)
     if arch == "resnet":
@@ -168,11 +177,37 @@ def engine_run(dev, engine, *, arch="resnet", image=32, batch=4, micro=1, split=
         step = make_train_step(model, opt, parts=batch // micro, compute_dtype=dtype,
                                pallas_conv=pallas)
         state = TrainState.create(model, opt)
+        for cell in model.cells[len(model.cells) if kernel_cells is None else kernel_cells:]:
+            cell.register_forward_pre_hook(
+                lambda mod, args: (args[0], args[1].with_spatial(None)))
     elif engine == "gems":
         part = StagePartition.build(model, split, (micro, *shape[1:]))
         step = make_gems_train_step(part, opt, StageChain(split), parts, times=times,
                                     pallas_conv=pallas, **kw)
         state = init_pipeline_state(part, opt, StageChain(split))
+    elif levels is not None or engine == "sp":
+        method, counts, stops = levels
+        g = math.isqrt(counts[0])
+        grid = {"square": (g, g), "vertical": (1, counts[0]),
+                "horizontal": (counts[0], 1)}[method]
+        ctxs = spatial_levels_for(method, counts, tiles=TileGrid(*grid),
+                                  use_pallas_conv=pallas)
+        chain = list(zip(stops, ctxs))
+        model.spatial_until = stops[-1]
+        if engine == "sp":
+            step = make_spatial_train_step(model, opt, ctxs[0], parts=batch // micro,
+                                           compute_dtype=dtype, levels=chain)
+            state = TrainState.create(model, opt)
+        else:
+            spp = SPPipeline.build(model, split, ctxs[0], micro, junction="gather",
+                                   levels=chain)
+            if engine == "sp_gems":
+                step = make_sp_gems_train_step(spp, opt, StageChain(split), parts,
+                                               times=times, **kw)
+            else:
+                step = make_sp_pipeline_train_step(spp, opt, StageChain(split), parts,
+                                                   **kw)
+            state = init_sp_pipeline_state(spp, opt, StageChain(split))
     else:
         model.spatial_until = spatial_until
         sp = spatial_ctx_for("vertical", 2, tiles=TileGrid(1, 2), use_pallas_conv=pallas)

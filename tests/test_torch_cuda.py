@@ -769,3 +769,107 @@ def test_seqblock_step_launches_k3_once_per_block(card):
     assert math.isfinite(loss)
     assert fa.LAUNCHES["block_flash"] == 3
     assert fa.LAUNCHES["block_flash_bwd"] == 3
+
+
+# ---------------------------------------------------------------------------
+# Multi-level SP and the memory levers: the card against the CPU.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("engine,method,counts", [
+    ("sp", "square", [4, 2]), ("sp", "vertical", [2, 1]), ("sp_pp", "square", [4, 2]),
+])
+def test_multilevel_engines_on_card_match_cpu(card, engine, method, counts):
+    """Multi-level SP and SP x PP, AmoebaNet-D(3, 32) 128² in float64 with
+    the kernels off, two steps: losses rtol 1e-10, updates within 1e-8."""
+    from mpi4dl_tpu_torch.utils.devcheck import engine_run
+
+    kw = dict(arch="amoebanet", dtype=torch.float64, image=128,
+              levels=(method, counts, [3, 6]), micro=2 if engine == "sp_pp" else 4)
+    if engine == "sp_pp":
+        kw["parts"] = 2
+    init = engine_run("cpu", "single", steps=0, arch="amoebanet", dtype=torch.float64,
+                      image=128)[1]
+    losses, got = engine_run(card, engine, **kw)
+    want_losses, want = engine_run("cpu", engine, **kw)
+    keys = [k for k in init if init[k].is_floating_point()]
+    assert max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses)) <= 1e-10
+    assert norm_rel([got[k] - init[k] for k in keys],
+                    [want[k] - init[k] for k in keys]) <= 1e-8
+
+
+def test_multilevel_step_launches_what_the_dispatch_predicts(card):
+    """The multi-level step's K1/K2 launches equal its dry run's, and no
+    degenerate level launches a kernel."""
+    from mpi4dl_tpu_torch.layer_ctx import spatial_levels_for
+    from mpi4dl_tpu_torch.models import amoebanetd
+    from mpi4dl_tpu_torch.parallel.tiles import TileGrid
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_spatial_train_step
+
+    for counts in ([4, 2], [4, 1]):
+        calls = {}
+        for dev in ("meta", card):
+            model = amoebanetd((1, 256, 256, 3), num_classes=10, num_layers=3,
+                               num_filters=32, device=dev)
+            ctxs = spatial_levels_for("square", counts, tiles=TileGrid(2, 2),
+                                      d2_mode=True, use_pallas_conv=True)
+            opt = Optimizer("sgd", lr=1e-3)
+            step = make_spatial_train_step(model, opt, ctxs[0], compute_dtype=torch.bfloat16,
+                                           levels=[(3, ctxs[0]), (6, ctxs[1])])
+            x = torch.zeros((1, 256, 256, 3), device=dev)
+            y = torch.zeros((1,), dtype=torch.long, device=dev)
+            if dev == "meta":
+                with hc.count_dispatches() as seen:
+                    step(TrainState.create(model, opt), x, y)
+                calls[dev] = seen.counts
+            else:
+                before = dict(hc.LAUNCHES)
+                step(TrainState.create(model, opt), torch.randn_like(x), y)
+                torch.cuda.synchronize()
+                calls[dev] = {k: hc.LAUNCHES[k] - before[k] for k in before}
+        assert calls["meta"] == calls[card] and calls[card]["halo_conv2d"] > 0, calls
+
+
+@pytest.mark.parametrize("h,w,kh,kw,s,pad", [
+    (64, 64, 3, 3, 2, ((1, 1), (1, 1))), (64, 64, 1, 1, 2, ((0, 0), (0, 0))),
+    (63, 61, 3, 3, 2, ((1, 2), (0, 1))),
+])
+def test_conv_phase_on_card_matches_cpu(card, h, w, kh, kw, s, pad):
+    """The phase-decomposed strided conv: value and VJPs on the card within
+    1e-5 (norm-relative, fp32, TF32 off) of the CPU's."""
+    from mpi4dl_tpu_torch.ops.conv_phase import conv2d_strided_t
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, h, w, 16), generator=g)
+    wk = torch.randn((kh, kw, 16, 24), generator=g) / (kh * kw)
+    ct = None
+    outs = []
+    for dev in ("cpu", card):
+        xt = x.to(dev).requires_grad_(True)
+        wt = wk.to(dev).requires_grad_(True)
+        y = conv2d_strided_t(xt, wt, (s, s), pad)
+        ct = torch.randn(y.shape, generator=g) if ct is None else ct
+        outs.append([y] + list(torch.autograd.grad(y, (xt, wt), ct.to(dev))))
+    for a, b in zip(*outs):
+        assert norm_rel([b.detach().cpu()], [a.detach()]) <= 1e-5
+
+
+def test_hstripe_conv2d_on_card_matches_cpu(card, monkeypatch):
+    """``hstripe_conv2d`` striped (budget lowered): value and VJPs on the
+    card within 1e-5 of the CPU's."""
+    from mpi4dl_tpu_torch.ops import hstripe_conv
+
+    monkeypatch.setattr(hstripe_conv, "_PATCH_BUDGET", 20000)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 61, 40, 8), generator=g)
+    wk = torch.randn((3, 3, 8, 12), generator=g) / 9
+    ct = None
+    outs = []
+    for dev in ("cpu", card):
+        xt = x.to(dev).requires_grad_(True)
+        wt = wk.to(dev).requires_grad_(True)
+        y = hstripe_conv.hstripe_conv2d(xt, wt, (1, 1), (1, 1))
+        ct = torch.randn(y.shape, generator=g) if ct is None else ct
+        outs.append([y] + list(torch.autograd.grad(y, (xt, wt), ct.to(dev))))
+    for a, b in zip(*outs):
+        assert norm_rel([b.detach().cpu()], [a.detach()]) <= 1e-5

@@ -10,6 +10,11 @@ train and eval: outputs within atol 1e-5, gradients rtol 1e-4 / atol
 model within the JAX GEMS tests' bounds (loss rtol 1e-4, parameters rtol
 2e-3 / atol 1e-5).  The gate's decision agrees with the JAX gate at the
 real thresholds (shapes only), and a near-prime height falls back.
+
+The striped conv ``hstripe_conv2d`` (``tests/test_hstripe.py``'s cases,
+``_PATCH_BUDGET`` lowered in both packages): values atol 1e-5 and VJPs
+atol 1e-4 against JAX's ``hstripe_conv2d``.  No layer of the port
+dispatches it (slower on an H100, PERF.md §6).
 """
 
 import numpy as np
@@ -259,3 +264,41 @@ def test_gate_agrees_with_jax_at_the_real_thresholds(monkeypatch, env):
                 decided.append(want)
     assert any(decided) == (env.get("MPI4DL_HSTRIPE_RUN") != "0")
     assert not all(decided)
+
+
+# ---------------------------------------------------------------------------
+# hstripe_conv2d: one conv, H stripe by H stripe.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kh,kw,h,w,cin,cout,ph,pw", [
+    (3, 3, 16, 12, 4, 6, (1, 1), (1, 1)),
+    (1, 1, 16, 12, 4, 6, (0, 0), (0, 0)),
+    (3, 1, 18, 10, 3, 5, (1, 1), (0, 0)),
+    (5, 5, 20, 16, 2, 4, (2, 2), (2, 2)),
+    (3, 3, 17, 11, 4, 6, (1, 2), (0, 1)),
+    (3, 3, 18, 12, 4, 6, (0, 0), (0, 0)),
+    (3, 3, 61, 8, 4, 4, (0, 0), (0, 0)),  # oh 59, prime: a ragged last stripe
+])
+def test_hstripe_conv2d_matches_jax(monkeypatch, kh, kw, h, w, cin, cout, ph, pw):
+    import jax
+    import jax.numpy as jnp
+
+    from mpi4dl_tpu.ops import hstripe_conv as jhc
+
+    for mod in (hc, jhc):
+        monkeypatch.setattr(mod, "_PATCH_BUDGET", 4000)
+    rng = np.random.default_rng(kh * 100 + h)
+    x = rng.standard_normal((2, h, w, cin)).astype(np.float32)
+    wk = (rng.standard_normal((kh, kw, cin, cout)) / (kh * kw)).astype(np.float32)
+    y_j, vjp = jax.vjp(lambda a, b: jhc.hstripe_conv2d(a, b, ph, pw), jnp.asarray(x),
+                       jnp.asarray(wk))
+    t = rng.standard_normal(y_j.shape).astype(np.float32)
+    gx_j, gw_j = vjp(jnp.asarray(t))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(wk).requires_grad_(True)
+    y = hc.hstripe_conv2d(xt, wt, ph, pw)
+    gx, gw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(t))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_j), atol=1e-5)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(gx_j), atol=1e-4)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(gw_j), atol=1e-4)

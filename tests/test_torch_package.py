@@ -109,7 +109,7 @@ def test_main_runs_on_cpu_when_asked(capsys):
 
 
 # Items ported since the flags were first refused: their flags now parse.
-PORTED = {"A5", "A6", "A7", "A8"}
+PORTED = {"A5", "A6", "A7", "A8", "A11"}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -128,13 +128,15 @@ PORTED = {"A5", "A6", "A7", "A8"}
 ])
 def test_unported_flags_raise(flags, item):
     """A flag of an engine not ported yet raises and names its ROADMAP
-    item; the flags of the ported engines (A5-A8: spatial parallelism, the
-    data axis, the pipelines and GEMS) parse."""
+    item; the flags of the ported engines (A5-A8 and A11: spatial
+    parallelism, the data axis, the pipelines, GEMS, multi-level SP and the
+    stripe-wise backward) parse."""
     if item in PORTED:
         cfg = config_from_args(get_parser().parse_args(flags))
         assert cfg.enable_gems == ("--enable-gems" in flags)
         assert cfg.times == (2 if "--times" in flags else 1)
-        assert cfg.num_spatial_parts == (4,)
+        assert cfg.num_spatial_parts == ((4, 2) if "4,2" in flags else (4,))
+        assert cfg.stripe_bwd == ("--stripe-bwd" in flags)
         assert cfg.spatial_until in (None, 3) and cfg.halo_d2 == ("--halo-d2" in flags)
         assert cfg.split_size == (2 if "--split-size" in flags else 1)
         assert cfg.data_parallel == (2 if "--data-parallel" in flags else 1)

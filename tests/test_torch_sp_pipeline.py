@@ -43,7 +43,7 @@ import torch
 
 from mpi4dl_tpu_torch import layers as L
 from mpi4dl_tpu_torch.cells import CellModel, LayerCell
-from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
+from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for, spatial_levels_for
 from mpi4dl_tpu_torch.models import amoebanetd, get_resnet_v2
 from mpi4dl_tpu_torch.parallel.sp_pipeline import (
     SPPipeline, init_sp_pipeline_state, make_sp_gems_train_step, make_sp_pipeline_train_step,
@@ -208,12 +208,19 @@ def test_batch_split_with_batchnorm_trains(gems):
 
 
 def test_sp_pipeline_refuses_multi_level_and_mixed_backends():
+    """Multi-level SP is ported: a level chain that does not end at the
+    junction, or whose level 0 is not ``sp``, is refused; so is a mix of
+    rank and one-process backends."""
     from mpi4dl_tpu_torch.parallel.stages import ProcessGroupStages
 
     m = _port("flat", 4)
     sp = spatial_ctx_for("square", 4, tiles=TileGrid(2, 2))
-    with pytest.raises(NotImplementedError, match="A11"):
-        SPPipeline.build(m, 2, sp, 4, levels=[(1, sp), (2, sp)])
+    with pytest.raises(ValueError, match="ends at cell"):
+        SPPipeline.build(m, 2, sp, 4, levels=[(1, sp), (3, sp)])
+    lv = spatial_levels_for("square", [4, 2], tiles=TileGrid(2, 2))
+    with pytest.raises(ValueError, match="level 0"):
+        SPPipeline.build(m, 2, sp, 4, levels=[(1, lv[0]), (2, lv[1])])
+    assert SPPipeline.build(m, 2, lv[0], 4, levels=[(1, lv[0]), (2, lv[1])]).levels
     spp = SPPipeline.build(m, 2, sp, 4)
     fake = ProcessGroupStages.__new__(ProcessGroupStages)
     fake.group, fake.num_stages, fake.stage, fake.local_stages = object(), 2, 0, (0,)
