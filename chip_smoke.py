@@ -161,7 +161,32 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    the convs of ResNet-110 v2 2048² that JAX's gate would stripe, the
    phase dx's backward at AmoebaNet's 1024² strided convs (device ms and
    the memory each allocates).  Recorded, not asserted.
-20. The kernels' JSON line, the card line, and last the result line.  K1's
+20. Data and checkpoints, through the ``lp`` runner (``benchmarks/common.run``)
+   at phase 3's model and settings (AmoebaNet-D(18, 416), 1024², bs1,
+   bf16 over fp32 params, kernels on, remat off, 1000 classes): ``--app 1``
+   on a folder of 2 x 4 random 1024² PPM images written here from a seed,
+   ``--num-workers 2``, ``--checkpoint-dir`` in a temporary directory,
+   ``--steps-per-epoch 4``.  The native loader must have built and decoded
+   every image the run fed; 80 K2 and 80 K1 launches a step (the counts,
+   the decodes' too, at 0 just before this run); finite losses; ``ckpt_0`` and ``ckpt_4`` pass
+   ``cheap_validate``.  A second call with ``--num-epochs 2`` prints
+   ``resuming from checkpoint step 4``, its restored state is bitwise the
+   saved one, and its losses for steps 4-7 equal an uninterrupted 2-epoch
+   call's within rtol 1e-5 (printed: bitwise or the largest difference).
+   Then ``--app 1`` with 0 workers and ``--app 3``, 8 steps each, beside
+   the uninterrupted 2-worker call: each one's step img/s (timed from the
+   batch in hand, as the JAX runner's), its wait for each batch, and its
+   fed img/s over both; each save's ms and bytes and the restore's ms.
+21. The halo tools at the JAX tools' documented shapes:
+   ``benchmark_pallas_conv`` (512², 256 -> 256, 3x3, bf16),
+   ``benchmark_d2_step`` (tile 512, 208 channels, 3 fused ops; 3 K2 and 3
+   K1 launches a step) and ``benchmark_sp_halo_exchange --with-compute``
+   on the one-process grid (1024², 4 vertical parts, halo 3): each JSON
+   line reads ``"validation": "pass"`` (the D2 step's: the kernels-on
+   arm's output, input gradient and weight gradients within 2^-7 of the
+   kernels-off arm's in relative L2 norm), the exchange tool prints PASSED
+   twice.
+22. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -169,7 +194,8 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
    GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-19 run between phases 3 and 4, each printing its seconds.  The
+Phases 7-19 run between phases 3 and 4, phases 20-21 after phase 6, each
+printing its seconds.  The
 dry runs (meta device, CPU only) run in three worker processes from the
 start, beside phases 1-3.
 """
@@ -1954,6 +1980,192 @@ def phase_memory_levers():
     print(f"memory levers: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# The data + checkpoint slice: the lp runner at full width (phase 3's model
+# and settings) on an image folder written here, with checkpoints.
+DATA_FLAGS = ["--split-size", "1", "--model", "amoebanet", "--image-size", "1024",
+              "--num-layers", "18", "--num-filters", "416", "--num-classes", "1000",
+              "--batch-size", "1", "--precision", "bf_16", "--pallas-conv", "--no-remat",
+              "--lr", "0.001", "--steps-per-epoch", "4"]
+DATA_IMAGE, DATA_CLASSES, DATA_PER_CLASS = 1024, 2, 4
+
+
+def write_image_folder(root: str, size: int = DATA_IMAGE, seed: int = 0) -> None:
+    """``DATA_CLASSES`` classes of ``DATA_PER_CLASS`` random ``size``² PPM
+    images (also the four-card runs' data: ``python -c "import chip_smoke;
+    chip_smoke.write_image_folder('imgs', 2048)"``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for c in range(DATA_CLASSES):
+        os.makedirs(os.path.join(root, f"class{c}"))
+        for i in range(DATA_PER_CLASS):
+            img = rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+            with open(os.path.join(root, f"class{c}", f"{i}.ppm"), "wb") as f:
+                f.write(f"P6\n{size} {size}\n255\n".encode() + img.tobytes())
+
+
+class _Tee:
+    """Standard output, also kept in a buffer (to read a runner's notes)."""
+
+    def __init__(self, out):
+        import io
+
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def runner(argv, on_restore=None):
+    """The lp runner in this process; returns (summary, what it printed)."""
+    import contextlib
+
+    from mpi4dl_tpu_torch.benchmarks.common import run
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = run("lp", "amoebanet", argv, on_restore=on_restore)
+    return out, tee.buf.getvalue()
+
+
+def phase_data_checkpoint():
+    """The data + checkpoint slice (module docstring, phase 20)."""
+    import tempfile
+
+    import torch
+
+    from mpi4dl_tpu_torch import checkpoint as ck
+    from mpi4dl_tpu_torch import data_native
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+
+    assert data_native.available(), "the native image loader did not build"
+    print(f"data: native loader {data_native.library_path().name}, codecs "
+          f"{data_native.codecs()}", flush=True)
+    decoded = {"native": 0}
+    real_load = data_native.load_image
+
+    def counting_load(path, size):
+        out = real_load(path, size)
+        decoded["native"] += out is not None
+        return out
+
+    data_native.load_image = counting_load
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        folder = os.path.join(work, "images")
+        t0 = time.perf_counter()
+        write_image_folder(folder)
+        print(f"data: wrote {DATA_CLASSES * DATA_PER_CLASS} {DATA_IMAGE}^2 PPM images in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        from mpi4dl_tpu_torch.data import ImageFolderDataset
+
+        ds = ImageFolderDataset(folder, DATA_IMAGE)
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds.batch(i, 1)
+        print(f"data: decode {1e3 * (time.perf_counter() - t0) / len(ds):.2f} ms an image "
+              f"(host clock, {len(ds)} images, one thread)", flush=True)
+        app1 = DATA_FLAGS + ["--app", "1", "--datapath", folder]
+        ckdir = os.path.join(work, "ckpt")
+
+        # The main path of this slice: counts at 0 just before, read after.
+        reset_all_counts()
+        decoded["native"] = 0
+        first, _ = runner(app1 + ["--num-workers", "2", "--checkpoint-dir", ckdir])
+        launches = dict(hc.LAUNCHES)
+        steps = len(first["losses"])
+        # Every image the runner fed (steps x batch 1) came through the native loader.
+        assert decoded["native"] == steps, (decoded, steps)
+        print(f"data: app 1, 2 workers: K2 {launches['halo_conv2d_stats']} K1 "
+              f"{launches['halo_conv2d']} launches over {steps} steps", flush=True)
+        assert steps == 4 and all(math.isfinite(v) for v in first["losses"]), first["losses"]
+        assert launches["halo_conv2d_stats"] == 80 * steps, launches
+        assert launches["halo_conv2d"] == 80 * steps, launches
+        for sid in (0, 4):
+            path = os.path.join(ckdir, f"ckpt_{sid}")
+            manifest, _ = ck.cheap_validate(path)
+            print(f"data: ckpt_{sid} valid: {len(manifest['leaves'])} leaves, "
+                  f"{sum(sh['nbytes'] for l in manifest['leaves'] for sh in l['shards'])} "
+                  "bytes", flush=True)
+
+        checked = {}
+
+        def on_restore(state, mgr):
+            saved, _ = ck.load_arrays(mgr.last_restore.path)
+            leaves = ck.state_leaves(state)
+            assert len(leaves) == len(saved)
+            for i, leaf in enumerate(leaves):
+                assert torch.equal(leaf.full(), saved[f"leaf_{i}"]), f"leaf {i} differs"
+            checked["leaves"] = len(leaves)
+
+        resumed, printed = runner(app1 + ["--num-workers", "2", "--checkpoint-dir", ckdir,
+                                          "--num-epochs", "2"], on_restore)
+        assert "resuming from checkpoint step 4" in printed
+        assert checked["leaves"] > 0 and resumed["start_step"] == 4
+        whole, _ = runner(app1 + ["--num-workers", "2", "--num-epochs", "2"])
+        got, want = resumed["losses"], whole["losses"][4:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"data: resumed at step 4, {checked['leaves']} leaves bitwise equal to "
+              f"ckpt_4; losses 4-7 {got} vs uninterrupted {want}: "
+              f"{'bitwise equal' if got == want else f'max rel {rel:.3e}'}", flush=True)
+        assert len(got) == 4 and rel <= 1e-5, (got, want)
+
+        decoded["native"] = 0
+        w0, _ = runner(app1 + ["--num-workers", "0", "--num-epochs", "2"])
+        assert decoded["native"] == len(w0["losses"]), decoded
+        app3, _ = runner(DATA_FLAGS + ["--num-epochs", "2"])
+        saves = first["checkpoint"]["saves"] + resumed["checkpoint"]["saves"]
+        # The step meter starts with the batch in hand; the loop's wait for
+        # each batch (fetch ms) is the input pipeline's cost, fed img/s both.
+        for label, r in (("app 1 workers 0", w0), ("app 1 workers 2", whole),
+                         ("app 3 workers 0", app3)):
+            print(f"data: {label}: step img/s {r['images_per_sec']:.3f}, fed img/s "
+                  f"{r['fed_images_per_sec']:.3f}, wait for the batch (ms, steps 1-) "
+                  f"{[round(v, 2) for v in r['fetch_ms'][1:]]}", flush=True)
+        print("data: checkpoint saves " + ", ".join(
+            f"step {s['step']} {s['ms']:.0f} ms ({s['gather_ms']:.0f} device-to-host, "
+            f"{s['write_ms']:.0f} CRC32 + write + fsync) {s['bytes']} bytes" for s in saves)
+            + f"; restore {resumed['checkpoint']['restore_ms']:.0f} ms", flush=True)
+        return launches
+    finally:
+        data_native.load_image = real_load
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _tool(module, argv):
+    """Run one halo tool's ``main`` here; returns (rc, printed lines)."""
+    import contextlib
+    import importlib
+
+    tee = _Tee(sys.stdout)
+    mod = importlib.import_module(f"mpi4dl_tpu_torch.benchmarks.communication.halo.{module}")
+    with contextlib.redirect_stdout(tee):
+        rc = mod.main(argv)
+    return rc, tee.buf.getvalue().strip().splitlines()
+
+
+def phase_halo_tools():
+    """The three halo tools at the JAX tools' documented shapes (phase 21)."""
+    rc, lines = _tool("benchmark_pallas_conv", [
+        "--height", "512", "--width", "512", "--cin", "256", "--cout", "256",
+        "--kernel", "3", "--dtype", "bf16"])
+    assert rc == 0 and json.loads(lines[-1])["validation"] == "pass", lines[-1]
+    rc, lines = _tool("benchmark_d2_step", ["--tile", "512", "--channels", "208",
+                                            "--fused", "3"])
+    out = json.loads(lines[-1])
+    assert rc == 0 and out["validation"] == "pass", lines[-1]
+    assert out["launches_per_step"] == {"halo_conv2d": 3, "halo_conv2d_stats": 3}, out
+    rc, lines = _tool("benchmark_sp_halo_exchange", [
+        "--image-size", "1024", "--num-spatial-parts", "4", "--slice-method", "vertical",
+        "--halo-len", "3", "--with-compute"])
+    assert rc == 0 and json.loads(lines[-1])["validation"] == "pass", lines[-1]
+    assert sum("PASSED" in line for line in lines) == 2, lines
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -2033,6 +2245,8 @@ def main() -> int:
     k3, k3_bwd = timed(phase_flash_kernels)
     timed(phase_ring)
     k3_launches = timed(phase_seq_slice)
+    data_launches = timed(phase_data_checkpoint)
+    timed(phase_halo_tools)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"
@@ -2045,8 +2259,8 @@ def main() -> int:
         return out
 
     print(f"launches: pipeline runs {pp_launches}, local-DP run {ldp_launches}, "
-          f"GEMS / SP x PP runs {gems_launches}, multi-level runs {ml_launches}",
-          flush=True)
+          f"GEMS / SP x PP runs {gems_launches}, multi-level runs {ml_launches}, "
+          f"data + checkpoint run {data_launches}", flush=True)
 
     entries = [
         dict(kernel_entry("halo_conv2d", SOURCE, K1_SRC,

@@ -41,6 +41,10 @@ def main(argv=None) -> None:
     if cfg.split_size > 1 or cfg.data_parallel > 1:
         raise ValueError("--split-size and --data-parallel need ranks: run "
                          "mpi4dl_tpu_torch.benchmarks.layer_parallelism under torchrun")
+    if cfg.app != 3 or cfg.checkpoint_dir is not None:
+        raise ValueError("this entry point trains on synthetic batches without "
+                         "checkpoints: --app 1/2 and --checkpoint-dir are the "
+                         "runners' (mpi4dl_tpu_torch.benchmarks.layer_parallelism)")
     dev = resolve_device(args.device)
     model = build_model(cfg, device=dev)
     opt = Optimizer(cfg.optimizer, lr=cfg.lr, momentum=cfg.momentum)

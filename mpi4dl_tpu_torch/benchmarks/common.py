@@ -5,10 +5,18 @@ Parse the JAX package's flags, join the ``torchrun`` process group (gloo
 with ``--device cpu``, else NCCL with one card per rank), build the mesh
 over the ranks (``mesh.build_process_mesh``: rank layout row-major over
 ``(data, stage, sph, spw)``), the model (random weights from ``--seed``,
-the same on every rank) and the family's step, then train on a synthetic
-global batch made from ``--seed`` (``--batch-size`` images per data
-replica, as in the JAX runner) and print one line per step and the
-``StepMeter`` summary (the first step is the warm-up).  The ``sp`` and
+the same on every rank) and the family's step, then train as the JAX
+runner does (``benchmarks/common.py:449-604``): global step ``g`` takes
+batch ``g % --steps-per-epoch`` of ``data.make_dataset`` (``--app`` 1 image
+folder at ``--datapath``, 2 CIFAR-like, 3 synthetic from ``--seed``; a
+global batch of ``--batch-size`` images per data replica) through
+``prefetch_batches`` (``--num-workers`` > 0: a background thread), moved
+to the device as it arrives.  With ``--checkpoint-dir`` the run restores
+the newest valid checkpoint of the JAX runner's fingerprints and goes on
+from its step, saves once before the first step when the directory holds
+none, and at every epoch boundary (the synchronous saves of
+``resilience/loop.py:186-201, 432-444``).  It prints one line per step
+and the ``StepMeter`` summary (the first step is the warm-up).  The ``sp`` and
 ``gems_sp`` families' last line also says whether the tile ranks' tails
 (this stage's cells after the junction) agree (``tail_agreement``).
 
@@ -30,13 +38,14 @@ replica, as in the JAX runner) and print one line per step and the
 
 Run in one process with more than one rank in the mesh, it raises: the
 one-process tile grid and stage chain are reached only by calling the
-engines directly.  Telemetry, resilience and checkpoints are not ported
-(``--telemetry-dir``: ROADMAP A15; ``--watchdog-secs``: A14;
-``--checkpoint-dir``: A10).
+engines directly.  Telemetry and the supervised loop are not ported
+(``--telemetry-dir``: ROADMAP A15; ``--watchdog-secs``, the anomaly guard
+and the background checkpoint writer: A14).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -45,8 +54,10 @@ import time
 import torch
 import torch.distributed as dist
 
+from mpi4dl_tpu_torch import checkpoint as ckpt
 from mpi4dl_tpu_torch.cells import split_even
 from mpi4dl_tpu_torch.config import config_from_args, get_parser, resolve_pallas_conv
+from mpi4dl_tpu_torch.data import make_dataset, prefetch_batches
 from mpi4dl_tpu_torch.device import resolve_device
 from mpi4dl_tpu_torch.layer_ctx import spatial_levels_for
 from mpi4dl_tpu_torch.mesh import MeshSpec, build_process_mesh, initialize_distributed
@@ -233,8 +244,28 @@ def _build(cfg, family: str, dev, mesh, say):
             spp.tail_part.model.cells[r0:r1])
 
 
-def run(family: str, model: str, argv=None) -> dict:
-    """Parse flags, train, print; returns the summary dict (rank 0 prints)."""
+def checkpoint_manager(cfg, spec, steps_per_epoch: int, group=None):
+    """The runner's CheckpointManager at ``cfg.checkpoint_dir``, with the
+    JAX runner's fingerprints (``benchmarks/common.py:475-520``):
+    ``steps_per_epoch`` is identity (it maps global steps to batches), the
+    resolved quantization policy and stripe hatch are layout."""
+    identity, layout, desc = ckpt.split_config_fingerprint(
+        cfg, spec,
+        extra_identity={"steps_per_epoch": steps_per_epoch},
+        extra_layout={
+            "quant_resolved": "off",
+            "stripe_bwd_resolved": os.environ.get("MPI4DL_STRIPE_BWD", "0"),
+        },
+    )
+    return ckpt.CheckpointManager(
+        cfg.checkpoint_dir,
+        fingerprint=ckpt.config_fingerprint(cfg, spec, {"steps_per_epoch": steps_per_epoch}),
+        identity=identity, layout=layout, layout_desc=desc, group=group)
+
+
+def run(family: str, model: str, argv=None, on_restore=None) -> dict:
+    """Parse flags, train, print; returns the summary dict (rank 0 prints).
+    ``on_restore(state, manager)`` is called after a checkpoint restore."""
     p = get_parser()
     p.set_defaults(model=model)
     p.add_argument("--steps-per-epoch", type=int, default=10)
@@ -276,39 +307,97 @@ def run(family: str, model: str, argv=None) -> dict:
         flush=True)
     step, state, notes, tail = _build(cfg, family, dev, mesh, say)
     batch = cfg.batch_size * spec.data
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed + 1)
-    x = torch.randn((batch, cfg.image_size, cfg.image_size, 3),
-                    generator=gen, device=dev)
-    y = torch.randint(0, cfg.num_classes, (batch,), generator=gen, device=dev)
+    steps = args.steps_per_epoch
+    total = cfg.num_epochs * steps
+
+    mgr, start, saves, restore_ms = None, 0, [], None
+    if cfg.checkpoint_dir:
+        # The ranks agree on saves and restores over gloo, on any device.
+        group = dist.new_group(backend="gloo") if spec.size > 1 else None
+        mgr = checkpoint_manager(cfg, spec, steps, group)
+        t0 = time.perf_counter()
+        state, start = mgr.restore_latest(state)
+        if mgr.last_restore is not None:
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            if on_restore is not None:
+                on_restore(state, mgr)
+        if start:
+            say(f"resuming from checkpoint step {start}", flush=True)
+        if mgr.last_restore is not None and mgr.last_restore.elastic:
+            say("note: ELASTIC restore — checkpoint was saved under a different "
+                f"layout ({mgr.last_restore.saved_layout}); leaves re-placed under "
+                "this run's mesh", flush=True)
+        if start >= total:
+            say(f"note: checkpoint step {start} already covers {cfg.num_epochs} "
+                f"epoch(s) x {steps} steps — nothing to run", flush=True)
+
+    def save(step_id: int) -> None:
+        t0 = time.perf_counter()
+        mgr.save(state, step_id)
+        st = mgr.last_save_stats  # rank 0's: every rank's shards, the slowest's times
+        saves.append({"step": step_id, "ms": (time.perf_counter() - t0) * 1e3,
+                      **({"bytes": st.bytes, "gather_ms": st.gather_ms,
+                          "write_ms": st.write_ms} if st is not None else {})})
+        say(f"checkpoint: step {step_id} saved in {saves[-1]['ms']:.1f} ms "
+            f"({saves[-1].get('bytes')} bytes; device-to-host "
+            f"{saves[-1].get('gather_ms', 0):.1f} ms, CRC32 + write + fsync "
+            f"{saves[-1].get('write_ms', 0):.1f} ms)", flush=True)
+
+    if mgr is not None and mgr.latest_path() is None:
+        save(start)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    dataset = make_dataset(cfg)
     meter = StepMeter(batch, warmup_steps=1)
     halo_conv.reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    losses = []
-    for i in range(cfg.num_epochs * args.steps_per_epoch):
-        sync()
-        t0 = time.perf_counter()
-        state, m = step(state, x, y)
-        losses.append(float(m["loss"]))  # synchronises
-        ms = (time.perf_counter() - t0) * 1e3
-        meter.add(ms)
-        say(f"step {i}: loss {losses[-1]:.6f}  {batch / ms * 1e3:.3f} "
-            f"img/s ({ms:.1f} ms)", flush=True)
+    losses, x, y = [], None, None
+    # The meter times a step from its batch in hand (the JAX runner's);
+    # fetch_ms is the loop's wait for each batch (the decode when no worker
+    # runs ahead), so fed img/s, over both, prices the input pipeline.
+    fetch_ms = []
+    # closing: an exception mid-run stops the prefetch thread at once.
+    with contextlib.closing(prefetch_batches(dataset, batch, start, total,
+                                             index_of=lambda g: g % steps,
+                                             num_workers=cfg.num_workers)) as batches:
+        t_fetch = time.perf_counter()
+        for g, (xb, yb) in batches:
+            fetch_ms.append((time.perf_counter() - t_fetch) * 1e3)
+            sync()
+            t0 = time.perf_counter()
+            x = torch.from_numpy(xb).to(dev)
+            y = torch.from_numpy(yb).to(dev, torch.int64)
+            state, m = step(state, x, y)
+            losses.append(float(m["loss"]))  # synchronises
+            ms = (time.perf_counter() - t0) * 1e3
+            meter.add(ms)
+            say(f"step {g}: loss {losses[-1]:.6f}  {batch / ms * 1e3:.3f} "
+                f"img/s ({ms:.1f} ms)", flush=True)
+            if mgr is not None and (g + 1) % steps == 0:
+                save(g + 1)
+            t_fetch = time.perf_counter()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     if peak is not None:
         print(f"rank {rank}: peak {peak / 2**30:.2f} GiB", flush=True)
-    if args.profile_dir:
+    if args.profile_dir and x is not None:
         _profile_step(args.profile_dir, rank, lambda: step(state, x, y), dev, say)
     say(meter.summary(), flush=True)
+    fed = [f + m for f, m in zip(fetch_ms[1:], meter.times_ms)]  # after the warm-up
     out = {"images_per_sec": meter.images_per_sec(), "losses": losses,
+           "fetch_ms": fetch_ms,
+           "fed_images_per_sec": batch * len(fed) / sum(fed) * 1e3 if fed else None,
            "stats": meter.stats(), "peak_bytes": peak,
-           "launches": dict(halo_conv.LAUNCHES), "ranks": spec.size, **notes}
+           "launches": dict(halo_conv.LAUNCHES), "ranks": spec.size,
+           "start_step": start, "final_step": start + len(losses),
+           "elastic": bool(mgr is not None and mgr.last_restore is not None
+                           and mgr.last_restore.elastic),
+           "checkpoint": ({"saves": saves, "restore_ms": restore_ms}
+                          if mgr is not None else None),
+           **notes}
     if tail is not None:
         out.update(tail_agreement(tail, mesh.tiles.group))
     say(json.dumps(out), flush=True)

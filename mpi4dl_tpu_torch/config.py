@@ -86,18 +86,10 @@ class ParallelConfig:
         if self.balance is not None and (len(self.balance) != self.split_size):
             raise ValueError(f"--balance {self.balance} needs {self.split_size} "
                              "entries (--split-size)")
-        unported = [
-            (self.app != 3 or self.checkpoint_dir is not None,
-             "data loading and checkpoints (--app 1/2, --checkpoint-dir)",
-             "A10"),
-            (self.quant_collectives != "off",
-             "quantized collectives (--quant)", "A13"),
-        ]
-        for asked, what, item in unported:
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet (ROADMAP {item})"
-                )
+        if self.quant_collectives != "off":
+            raise NotImplementedError(
+                "quantized collectives (--quant) is not ported to PyTorch yet "
+                "(ROADMAP A13)")
 
 
 def resolve_pallas_conv(setting: Optional[bool]) -> bool:

@@ -18,8 +18,11 @@ computes, as in the JAX package:
 
 ``use_flash=None`` picks the flash path for CUDA tensors and the einsum
 path for CPU tensors (``_resolve_flash`` :82-89 picks by backend).
-``seq_ghost_exchange`` and ``ghost_conv1d`` (``ring.py:41-79``) are not
-ported yet (ROADMAP A12).
+
+:func:`seq_ghost_exchange` and :func:`ghost_conv1d` (``ring.py:41-79``)
+are the 1-D ghost-cell instance of the halo exchange over the same
+sequence-sharded ``group``: the ranks form a 1 x n tile row
+(:class:`~mpi4dl_tpu_torch.parallel.tiles.ProcessGroupTiles`).
 """
 
 from __future__ import annotations
@@ -27,11 +30,40 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from mpi4dl_tpu_torch.distributed import rank_and_size, ring_hop, tie
 from mpi4dl_tpu_torch.ops.flash_attention import (
     NEG_INF, block_flash_t, flash_attention_local, fold_heads, mlo_merge,
 )
+
+
+def seq_ghost_exchange(x: torch.Tensor, group, n: int, lo: int, hi: int,
+                       dim: int = 1) -> torch.Tensor:
+    """Extend this rank's sequence shard with ``lo`` trailing tokens of the
+    previous shard and ``hi`` leading tokens of the next (zeros at the
+    global sequence boundary, the conv halo's zero padding).  With
+    ``group`` None: the zero-padded sequence of one device."""
+    from mpi4dl_tpu_torch.ops.halo import HaloSpec, halo_exchange_1d
+    from mpi4dl_tpu_torch.parallel.tiles import ProcessGroupTiles
+
+    tiles = None if group is None else ProcessGroupTiles(1, n, group)
+    return halo_exchange_1d(x, dim, "spw", 1 if group is None else n,
+                            HaloSpec(lo, hi), tiles)
+
+
+def ghost_conv1d(x: torch.Tensor, kernel: torch.Tensor, group, n: int,
+                 stride: int = 1) -> torch.Tensor:
+    """1-D "same" convolution of a sequence-sharded ``[B, T, C]`` tensor
+    with ``kernel`` ``[K, C_in, C_out]``.  With ``group`` None a plain
+    padded conv; sharded, the (K-1)//2 overlap is ghost-exchanged and the
+    conv runs VALID, which equals the unsharded op."""
+    k = kernel.shape[0]
+    lo, hi = (k - 1) // 2, k - 1 - (k - 1) // 2
+    x = seq_ghost_exchange(x, group, n, lo, hi)
+    y = F.conv1d(x.transpose(1, 2), kernel.to(x.dtype).permute(2, 1, 0).contiguous(),
+                 stride=stride)
+    return y.transpose(1, 2)
 
 
 def _einsum_local(q, k, v, causal: bool, sc) -> torch.Tensor:

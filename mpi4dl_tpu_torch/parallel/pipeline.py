@@ -37,7 +37,8 @@ def local_params(part: StagePartition, stages):
 def init_pipeline_state(part: StagePartition, optimizer: Optimizer, stages) -> TrainState:
     """The model (its cells are the stages) and an optimizer state over
     this process's stages' parameters only."""
-    return TrainState(part.model, optimizer.init(local_params(part, stages)), 0)
+    params = local_params(part, stages)
+    return TrainState(part.model, optimizer.init(params), 0, params)
 
 
 def make_pipeline_train_step(part: StagePartition, optimizer: Optimizer, stages,

@@ -133,8 +133,8 @@ class SPPipeline:
 def init_sp_pipeline_state(spp: SPPipeline, optimizer: Optimizer, stages) -> TrainState:
     """The model and an optimizer state over the region's parameters and
     this process's tail stages'."""
-    return TrainState(spp.model, optimizer.init(
-        spp.region_params() + local_params(spp.tail_part, stages)), 0)
+    params = spp.region_params() + local_params(spp.tail_part, stages)
+    return TrainState(spp.model, optimizer.init(params), 0, params)
 
 
 class _StageLineup(torch.autograd.Function):

@@ -9,7 +9,8 @@ per ``SeqBlock`` (``ln1_scale``, ``wqkv``, ...), which maps to an
 ``nn.ModuleList`` of the port's ``SeqBlock``.  The port's modules mirror
 that tree: the same names, the same layouts.  :func:`from_jax_params`
 copies such a tree (of numpy arrays) into a port model;
-:func:`to_jax_layout` reads one back out.
+:func:`to_jax_layout` reads one back out, and :func:`layout_tensors`
+gives the same tree holding the live tensors.
 """
 
 from __future__ import annotations
@@ -68,16 +69,28 @@ def from_jax_params(params, model: nn.Module) -> None:
             from_jax_params(value, getattr(model, key))
 
 
-def to_jax_layout(model: nn.Module):
-    """The model's parameters and buffers as the JAX pytree (numpy fp32)."""
+def layout_tensors(model: nn.Module):
+    """The model's parameters and buffers as the JAX pytree, holding the
+    live tensors (a checkpoint reads and writes them in place)."""
     if isinstance(model, (CellModel, LayerCell, nn.ModuleList)):
-        return [to_jax_layout(c) for c in _sequence(model)]
+        return [layout_tensors(c) for c in _sequence(model)]
     if isinstance(model, _LEAVES):
-        return {k: t.detach().float().cpu().numpy()
-                for k, t in _tensors(model).items()}
+        return _tensors(model)
     out = {}
     for name, child in model.named_children():
-        sub = to_jax_layout(child)
+        sub = layout_tensors(child)
         if sub != {}:
             out[name] = sub
     return out
+
+
+def to_jax_layout(model: nn.Module):
+    """The model's parameters and buffers as the JAX pytree (numpy fp32)."""
+    def host(tree):
+        if isinstance(tree, list):
+            return [host(c) for c in tree]
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.detach().float().cpu().numpy()
+
+    return host(layout_tensors(model))

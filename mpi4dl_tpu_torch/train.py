@@ -93,15 +93,19 @@ class Optimizer:
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and running statistics live in it), the
-    optimizer state and the step count."""
+    optimizer state and the step count.  ``params`` lists the parameters
+    the optimizer state covers, in its order (None: all of the model's);
+    a checkpoint finds each parameter's slots through it."""
 
     model: CellModel
     opt_state: Any
     step: int = 0
+    params: Optional[List[torch.Tensor]] = None
 
     @staticmethod
     def create(model: CellModel, optimizer: Optimizer) -> "TrainState":
-        return TrainState(model, optimizer.init(list(model.parameters())), 0)
+        params = list(model.parameters())
+        return TrainState(model, optimizer.init(params), 0, params)
 
 
 def merge_stat_updates(updates: Optional[Dict[BatchNorm, Tuple]]) -> None:

@@ -873,3 +873,79 @@ def test_hstripe_conv2d_on_card_matches_cpu(card, monkeypatch):
         outs.append([y] + list(torch.autograd.grad(y, (xt, wt), ct.to(dev))))
     for a, b in zip(*outs):
         assert norm_rel([b.detach().cpu()], [a.detach()]) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Data and checkpoints on the card.
+# ---------------------------------------------------------------------------
+
+_RUNNER = ["--image-size", "32", "--num-layers", "1", "--batch-size", "2",
+           "--steps-per-epoch", "2"]
+
+
+def test_runner_checkpoint_round_trip_on_card(card, tmp_path):
+    """The lp runner on the card: a run stopped after one epoch resumes at
+    step 2 with its saved state bitwise, and trains on like an
+    uninterrupted run (losses rtol 1e-5: the card's library convolutions
+    need not be bitwise repeatable)."""
+    from mpi4dl_tpu_torch.benchmarks.common import run
+    from mpi4dl_tpu_torch.checkpoint import load_arrays, state_leaves
+
+    a = _RUNNER + ["--checkpoint-dir", str(tmp_path / "a")]
+    run("lp", "resnet", a)
+    restored = []
+
+    def on_restore(state, mgr):
+        saved, _ = load_arrays(mgr.last_restore.path)
+        for i, leaf in enumerate(state_leaves(state)):
+            got = leaf.full()
+            assert got.device.type == "cpu" and torch.equal(got, saved[f"leaf_{i}"]), i
+        restored.append(len(saved))
+
+    resumed = run("lp", "resnet", a + ["--num-epochs", "2"], on_restore=on_restore)
+    whole = run("lp", "resnet", _RUNNER + ["--num-epochs", "2", "--checkpoint-dir",
+                                           str(tmp_path / "b")])
+    assert restored and resumed["start_step"] == 2 and resumed["final_step"] == 4
+    for x, y in zip(resumed["losses"], whole["losses"][2:]):
+        assert math.isclose(x, y, rel_tol=1e-5)
+    got, _ = load_arrays(str(tmp_path / "a" / "ckpt_4"))
+    want, _ = load_arrays(str(tmp_path / "b" / "ckpt_4"))
+    for k in got:
+        assert torch.allclose(got[k].double(), want[k].double(), rtol=1e-5, atol=1e-6), k
+
+
+def test_jax_checkpoint_restores_onto_a_cuda_model(card):
+    """The JAX package's checkpoint committed under tests/data (its bytes are
+    held to the JAX package by test_torch_checkpoint.py) restores onto a
+    model on the card bitwise as onto one on the CPU, and one training step
+    from it agrees (loss rtol 1e-5, parameters rtol 1e-4 / atol 1e-6)."""
+    import os
+
+    import numpy as np
+
+    from mpi4dl_tpu_torch import cells as tc, layers as tl
+    from mpi4dl_tpu_torch.checkpoint import CheckpointManager, state_leaves
+    from mpi4dl_tpu_torch.train import Optimizer, TrainState, make_train_step
+
+    fixture = os.path.join(os.path.dirname(__file__), "data", "jax_checkpoint")
+    states, losses = [], []
+    x = np.random.default_rng(4).standard_normal((4, 8, 8, 3)).astype(np.float32)
+    for dev in ("cpu", card):
+        model = tc.CellModel([
+            tc.LayerCell([tl.Conv2d(3, 8, 3, bias=False, device=dev), tl.BatchNorm(8, device=dev),
+                          tl.ReLU()]),
+            tc.LayerCell([tl.GlobalAvgPool(), tl.Dense(8, 5, device=dev)]),
+        ], (4, 8, 8, 3), 5)
+        opt = Optimizer("sgd", lr=0.05, momentum=0.9)
+        state, sid = CheckpointManager(fixture).restore_latest(TrainState.create(model, opt))
+        assert sid == 1 and state.step == 1
+        states.append([leaf.full() for leaf in state_leaves(state)])
+        state, m = make_train_step(model, opt)(state, torch.from_numpy(x).to(dev),
+                                               torch.arange(4, device=dev))
+        losses.append(float(m["loss"]))
+        states.append([leaf.full() for leaf in state_leaves(state)])
+    for a, b in zip(states[0], states[2]):
+        assert torch.equal(a, b)
+    assert math.isclose(losses[0], losses[1], rel_tol=1e-5)
+    for a, b in zip(states[1], states[3]):
+        assert torch.allclose(a.double(), b.double(), rtol=1e-4, atol=1e-6)

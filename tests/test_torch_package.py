@@ -109,7 +109,7 @@ def test_main_runs_on_cpu_when_asked(capsys):
 
 
 # Items ported since the flags were first refused: their flags now parse.
-PORTED = {"A5", "A6", "A7", "A8", "A11"}
+PORTED = {"A5", "A6", "A7", "A8", "A10", "A11"}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -121,6 +121,7 @@ PORTED = {"A5", "A6", "A7", "A8", "A11"}
     (["--enable-gems"], "A8"),
     (["--times", "2"], "A8"),
     (["--app", "1"], "A10"),
+    (["--checkpoint-dir", "ckpt"], "A10"),
     (["--stripe-bwd"], "A11"),
     (["--quant", "int8"], "A13"),
     (["--num-spatial-parts", "4,2"], "A11"),
@@ -128,9 +129,9 @@ PORTED = {"A5", "A6", "A7", "A8", "A11"}
 ])
 def test_unported_flags_raise(flags, item):
     """A flag of an engine not ported yet raises and names its ROADMAP
-    item; the flags of the ported engines (A5-A8 and A11: spatial
-    parallelism, the data axis, the pipelines, GEMS, multi-level SP and the
-    stripe-wise backward) parse."""
+    item; the flags of the ported engines (A5-A8, A10 and A11: spatial
+    parallelism, the data axis, the pipelines, GEMS, data loading and
+    checkpoints, multi-level SP and the stripe-wise backward) parse."""
     if item in PORTED:
         cfg = config_from_args(get_parser().parse_args(flags))
         assert cfg.enable_gems == ("--enable-gems" in flags)
@@ -141,6 +142,8 @@ def test_unported_flags_raise(flags, item):
         assert cfg.split_size == (2 if "--split-size" in flags else 1)
         assert cfg.data_parallel == (2 if "--data-parallel" in flags else 1)
         assert cfg.local_dp_lp == (2 if "--local-DP" in flags else 1)
+        assert cfg.app == (1 if "--app" in flags else 3)
+        assert cfg.checkpoint_dir == ("ckpt" if "--checkpoint-dir" in flags else None)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         config_from_args(get_parser().parse_args(flags))
@@ -206,14 +209,15 @@ def test_sp_runner_trains_on_four_gloo_ranks():
 ])
 def test_lp_runner_trains_on_four_gloo_ranks(flags):
     """``benchmark_resnet_lp`` under torchrun: one stage a rank (GPipe), and
-    DP2 x PP2 under 1F1B; the losses fall."""
+    DP2 x PP2 under 1F1B; three steps on one batch (an epoch of one step,
+    so global step g trains on batch g % 1 = 0), and the losses fall."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "4", "-m",
            "mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_resnet_lp",
            "--device", "cpu", "--image-size", "32", "--num-layers", "1",
-           "--batch-size", "4", "--parts", "2", "--steps-per-epoch", "3",
-           "--lr", "0.01", *flags]
+           "--batch-size", "4", "--parts", "2", "--steps-per-epoch", "1",
+           "--num-epochs", "3", "--lr", "0.01", *flags]
     out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
                          timeout=240)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
@@ -239,13 +243,14 @@ def test_lp_runner_trains_on_four_gloo_ranks(flags):
 def test_gems_and_sp_pipeline_runners_train_on_four_gloo_ranks(family, module, flags):
     """The ``gems`` runner (one stage a rank; DP2 x GEMS2 under 1F1B), the
     ``gems_sp`` runner and the ``sp`` runner with ``--split-size 2`` (stage
-    2 x 2 tiles) under torchrun on four gloo ranks: the losses fall, and
-    under SP the tile ranks hold the same tail."""
+    2 x 2 tiles) under torchrun on four gloo ranks: three steps on one batch
+    (an epoch of one step), the losses fall, and under SP the tile ranks
+    hold the same tail."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "4", "-m", f"mpi4dl_tpu_torch.benchmarks.{module}",
            "--device", "cpu", "--image-size", "32", "--num-layers", "1",
-           "--steps-per-epoch", "3", "--lr", "0.01", *flags]
+           "--steps-per-epoch", "1", "--num-epochs", "3", "--lr", "0.01", *flags]
     out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
                          timeout=240)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]

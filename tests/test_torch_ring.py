@@ -7,8 +7,8 @@ script (``python tests/test_torch_ring.py <job> <rank> <world> <dir>``):
 they meet through a ``file://`` store in a fresh temporary directory,
 give ``init_process_group`` a 60 s timeout, read their inputs from and
 write their results to that directory, and are killed if they outlive
-``RANK_DEADLINE_S``.  The file spawns twice (ring attention, the train
-step), a few seconds each.  JAX is imported inside the tests only, so the
+``RANK_DEADLINE_S``.  The file spawns three times (ring attention, the
+train step, the 1-D ghost exchange and conv), a few seconds each.  JAX is imported inside the tests only, so the
 ranks never load it.
 
 Tolerances are the JAX tests': ring values rtol/atol 2e-5
@@ -35,6 +35,7 @@ SHAPE = (2, 32, 2, 8)          # ring inputs [B, T, H, D], T split over WORLD
 PATHS = ("einsum", "flash")
 CP_LR = 0.05
 CP_STEPS = 3
+GHOST_KS = (3, 5)
 
 
 def launch_gloo_ranks(job: str, workdir: Path, world: int = WORLD,
@@ -140,11 +141,26 @@ def _rank_cp_step(rank: int, world: int, workdir: Path) -> dict:
     return out
 
 
+def _rank_ghost(rank: int, world: int, workdir: Path) -> dict:
+    from mpi4dl_tpu_torch.ops.ring import ghost_conv1d, seq_ghost_exchange
+
+    group = _init(rank, world, workdir)
+    inp = np.load(workdir / "inputs.npz")
+    out = {"exchange": seq_ghost_exchange(_shard(inp["seq"], rank, world), group, world,
+                                          2, 1).numpy()}
+    x = _shard(inp["x"], rank, world)
+    for k in GHOST_KS:
+        out[f"conv{k}"] = ghost_conv1d(x, torch.from_numpy(inp[f"kernel{k}"]), group,
+                                       world).numpy()
+    return out
+
+
 def _rank_main(job: str, rank: int, world: int, workdir: Path) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    out = {"ring": _rank_ring, "cp_step": _rank_cp_step}[job](rank, world, workdir)
+    out = {"ring": _rank_ring, "cp_step": _rank_cp_step,
+           "ghost": _rank_ghost}[job](rank, world, workdir)
     dist.barrier()
     dist.destroy_process_group()
     np.savez(workdir / f"out{rank}.npz", **out)
@@ -251,6 +267,49 @@ def test_cp_train_step_matches_jax_single_device_sgd(cp_run, path):
             np.testing.assert_allclose(ranks[0], np.asarray(want), rtol=1e-4, atol=1e-6,
                                        err_msg=f"block {i} {key}")
     assert losses[0][-1] < losses[0][0]
+
+
+@pytest.fixture(scope="module")
+def ghost_run(tmp_path_factory):
+    import jax
+
+    workdir = tmp_path_factory.mktemp("ghost")
+    seq = np.arange(2 * 16 * 3, dtype=np.float32).reshape(2, 16, 3)
+    x = np.asarray(jax.random.normal(jax.random.key(0), (2, 16, 8)))
+    kernels = {f"kernel{k}": np.asarray(jax.random.normal(jax.random.key(1), (k, 8, 16)) * 0.1)
+               for k in GHOST_KS}
+    np.savez(workdir / "inputs.npz", seq=seq, x=x, **kernels)
+    launch_gloo_ranks("ghost", workdir)
+    outs = [np.load(workdir / f"out{r}.npz") for r in range(WORLD)]
+    return seq, x, kernels, outs
+
+
+def test_seq_ghost_exchange_matches_pad(ghost_run):
+    """Each rank's ghost-extended shard equals the window of the
+    zero-padded sequence (tests/test_ring.py:20-40)."""
+    seq, _, _, outs = ghost_run
+    padded = np.pad(seq, ((0, 0), (2, 1), (0, 0)))
+    shard = seq.shape[1] // WORLD
+    for i, o in enumerate(outs):
+        np.testing.assert_array_equal(o["exchange"], padded[:, i * shard:i * shard + shard + 3])
+
+
+@pytest.mark.parametrize("k", GHOST_KS)
+def test_ghost_conv1d_matches_single_device(ghost_run, k):
+    """The sharded ghost conv, gathered, against the JAX package's unsharded
+    ``ghost_conv1d`` (tests/test_ring.py:43-58, rtol/atol 1e-5)."""
+    import jax.numpy as jnp
+
+    from mpi4dl_tpu.ops.ring import ghost_conv1d as jax_ghost_conv1d
+    from mpi4dl_tpu_torch.ops.ring import ghost_conv1d
+
+    _, x, kernels, outs = ghost_run
+    want = np.asarray(jax_ghost_conv1d(jnp.asarray(x), jnp.asarray(kernels[f"kernel{k}"]),
+                                       None, 1))
+    got = np.concatenate([o[f"conv{k}"] for o in outs], axis=1)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    plain = ghost_conv1d(torch.from_numpy(x), torch.from_numpy(kernels[f"kernel{k}"]), None, 1)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])
