@@ -186,7 +186,24 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    arm's output, input gradient and weight gradients within 2^-7 of the
    kernels-off arm's in relative L2 norm), the exchange tool prints PASSED
    twice.
-22. The kernels' JSON line, the card line, and last the result line.  K1's
+22. Resilience: the ``lp`` runner under the supervised loop at phase 20's
+   model and flags (``--app 1``, 2 workers, ``--pallas-conv``), each run
+   with its launches counted from 0 and held to 80 K2 + 80 K1 a step it
+   executed.  (a) 12 steps with ``--checkpoint-dir``: the baseline save
+   before step 0 is written in the background at the default 1 GiB
+   budget while the steps run (each save's wait on the training thread,
+   time to disk and peak pending bytes; the ms of the steps that overlap
+   a write against the others); then the final checkpoint, restored, is
+   saved synchronously (its wait), and the two manifests are equal, the
+   CRC32 of every shard included.  (b) ``MPI4DL_FAULT=sigterm@2`` with a 2
+   GiB budget: the run stops after step 2 with ``ckpt_3`` saved and
+   returns; the resume's losses for steps 3-7 equal phase 20's
+   uninterrupted run's within rtol 1e-5 (printed: bitwise or the largest
+   difference).  (c) ``nan_batch@5``: exactly one ``anomaly`` and one
+   ``recovery`` record (back to ``ckpt_4``, batch 5 skipped), finite
+   losses.  (d) ``--watchdog-secs 5`` with ``stall_data@2:8`` and no
+   worker: exactly one stack dump, with the card's memory line.
+23. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -194,7 +211,7 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
    GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-19 run between phases 3 and 4, phases 20-21 after phase 6, each
+Phases 7-19 run between phases 3 and 4, phases 20-22 after phase 6, each
 printing its seconds.  The
 dry runs (meta device, CPU only) run in three worker processes from the
 start, beside phases 1-3.
@@ -2127,10 +2144,11 @@ def phase_data_checkpoint():
                   f"{r['fed_images_per_sec']:.3f}, wait for the batch (ms, steps 1-) "
                   f"{[round(v, 2) for v in r['fetch_ms'][1:]]}", flush=True)
         print("data: checkpoint saves " + ", ".join(
-            f"step {s['step']} {s['ms']:.0f} ms ({s['gather_ms']:.0f} device-to-host, "
+            f"step {s['step']} waited {s['stall_ms']:.0f} ms, durable after "
+            f"{s['durable_ms']:.0f} ms ({s['gather_ms']:.0f} device-to-host, "
             f"{s['write_ms']:.0f} CRC32 + write + fsync) {s['bytes']} bytes" for s in saves)
             + f"; restore {resumed['checkpoint']['restore_ms']:.0f} ms", flush=True)
-        return launches
+        return launches, whole["losses"]
     finally:
         data_native.load_image = real_load
         shutil.rmtree(work, ignore_errors=True)
@@ -2164,6 +2182,161 @@ def phase_halo_tools():
         "--halo-len", "3", "--with-compute"])
     assert rc == 0 and json.loads(lines[-1])["validation"] == "pass", lines[-1]
     assert sum("PASSED" in line for line in lines) == 2, lines
+
+
+def _runs_main_path(out, steps_executed) -> None:
+    """80 K2 and 80 K1 launches a step the run executed (a rolled-back step
+    executes too), as the single-card slice."""
+    got = out["launches"]
+    assert got["halo_conv2d_stats"] == 80 * steps_executed, (got, steps_executed)
+    assert got["halo_conv2d"] == 80 * steps_executed, (got, steps_executed)
+
+
+def _manifest(path):
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)
+
+
+def _with_fault(spec, fn, *a, **k):
+    """``fn`` under ``MPI4DL_FAULT=spec`` (and nothing else changed)."""
+    os.environ["MPI4DL_FAULT"] = spec
+    try:
+        return fn(*a, **k)
+    finally:
+        del os.environ["MPI4DL_FAULT"]
+
+
+def phase_resilience(whole_losses):
+    """The supervised loop on the main path (module docstring, phase 22)."""
+    import contextlib
+    import tempfile
+
+    from mpi4dl_tpu_torch import checkpoint as ck
+    from mpi4dl_tpu_torch.obs import read_runlog
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        folder = os.path.join(work, "images")
+        write_image_folder(folder)
+        app1 = DATA_FLAGS + ["--app", "1", "--datapath", folder, "--num-workers", "2"]
+        runs = {}
+
+        # (a) Background saves at the default budget: the baseline before
+        # step 0 is written while steps 0-11 run; then the same state (the
+        # final checkpoint, restored) saved synchronously.
+        a_dir = os.path.join(work, "a")
+        reset_all_counts()
+        a, _ = runner(app1 + ["--steps-per-epoch", "12", "--checkpoint-dir", a_dir])
+        runs["async"] = a["launches"]
+        _runs_main_path(a, len(a["losses"]))
+        assert len(a["losses"]) == 12 and all(math.isfinite(v) for v in a["losses"])
+        for sv in a["checkpoint"]["saves"]:
+            print(f"resilience: async save, 1 GiB budget, step {sv['step']}: the "
+                  f"training thread waited {sv['stall_ms']:.1f} ms, durable after "
+                  f"{sv['durable_ms']:.1f} ms (device-to-host {sv['gather_ms']:.1f} ms, "
+                  f"CRC32 + write + fsync {sv['write_ms']:.1f} ms), peak pending "
+                  f"{sv['peak_pending_bytes']} bytes of {sv['bytes']}", flush=True)
+        pairs = list(zip(a["step_ms"], a["write_overlap"]))[1:]  # after the warm-up
+        busy = [ms for ms, o in pairs if o]
+        clear = [ms for ms, o in pairs if not o]
+        print(f"resilience: steps 1-11 ms {[round(v, 1) for v in a['step_ms'][1:]]}, "
+              f"overlapping a background write {a['write_overlap'][1:]}", flush=True)
+        if busy and clear:
+            print(f"resilience: steps overlapping a write: median "
+                  f"{statistics.median(busy):.1f} ms ({len(busy)}), the others "
+                  f"{statistics.median(clear):.1f} ms ({len(clear)}): "
+                  f"{statistics.median(busy) / statistics.median(clear):.3f}x", flush=True)
+        sync_dir = os.path.join(work, "sync")
+        synced = {}
+
+        def sync_save(state, mgr):
+            twin = ck.CheckpointManager(sync_dir, fingerprint=mgr.fingerprint,
+                                        identity=mgr.identity, layout=mgr.layout,
+                                        layout_desc=mgr.layout_desc)
+            t0 = time.perf_counter()
+            twin.save(state, mgr.last_restore.step_id)
+            synced.update(ms=(time.perf_counter() - t0) * 1e3, stats=twin.last_save_stats)
+
+        again, _ = runner(app1 + ["--steps-per-epoch", "12", "--checkpoint-dir", a_dir],
+                          sync_save)
+        assert again["start_step"] == 12 and again["losses"] == []
+        st = synced["stats"]
+        print(f"resilience: sync save of the same state (step 12): the training thread "
+              f"waited {synced['ms']:.1f} ms (device-to-host {st.gather_ms:.1f} ms, CRC32 "
+              f"+ write + fsync {st.write_ms:.1f} ms)", flush=True)
+        got = _manifest(os.path.join(a_dir, "ckpt_12"))["leaves"]
+        want = _manifest(os.path.join(sync_dir, "ckpt_12"))["leaves"]
+        assert [[sh["crc32"] for sh in l["shards"]] for l in got] == \
+            [[sh["crc32"] for sh in l["shards"]] for l in want]
+        assert got == want
+        print(f"resilience: async and sync manifests equal: {len(got)} leaves, CRC32 "
+              "of every shard", flush=True)
+
+        # (b) sigterm@2 with a 2 GiB budget (the baseline save is then the
+        # copy alone), and the resume against phase 20's uninterrupted run.
+        b_dir = os.path.join(work, "b")
+        b_flags = app1 + ["--num-epochs", "2", "--checkpoint-dir", b_dir]
+        os.environ["MPI4DL_CKPT_HOST_BYTES"] = str(2 << 30)
+        try:
+            reset_all_counts()
+            killed, _ = _with_fault("sigterm@2", runner, b_flags)
+        finally:
+            del os.environ["MPI4DL_CKPT_HOST_BYTES"]
+        runs["sigterm"] = killed["launches"]
+        _runs_main_path(killed, 3)
+        assert killed["preempted"] and killed["final_step"] == 3, killed["final_step"]
+        ck.cheap_validate(os.path.join(b_dir, "ckpt_3"))
+        for sv in killed["checkpoint"]["saves"]:
+            print(f"resilience: async save, 2 GiB budget, step {sv['step']}: waited "
+                  f"{sv['stall_ms']:.1f} ms, durable after {sv['durable_ms']:.1f} ms "
+                  f"(device-to-host {sv['gather_ms']:.1f} ms), peak pending "
+                  f"{sv['peak_pending_bytes']} bytes", flush=True)
+        resumed, printed = runner(b_flags)
+        assert "resuming from checkpoint step 3" in printed and resumed["start_step"] == 3
+        got, want = resumed["losses"], whole_losses[3:8]
+        rel = max(abs(x - w) / abs(w) for x, w in zip(got, want))
+        print(f"resilience: sigterm@2: preempted after step 2, ckpt_3 saved, exit 0; "
+              f"resumed losses 3-7 {got} vs uninterrupted {want}: "
+              f"{'bitwise equal' if got == want else f'max rel {rel:.3e}'}", flush=True)
+        assert len(got) == 5 and rel <= 1e-5, (got, want)
+
+        # (c) nan_batch@5: one rollback to ckpt_4, batch 5 skipped.
+        c_dir, tele = os.path.join(work, "c"), os.path.join(work, "tele")
+        reset_all_counts()
+        c, _ = _with_fault("nan_batch@5", runner, app1 + [
+            "--num-epochs", "2", "--checkpoint-dir", c_dir, "--telemetry-dir", tele])
+        runs["nan_batch"] = c["launches"]
+        _runs_main_path(c, len(c["losses"]) + c["anomalies"])
+        recs = read_runlog(c["telemetry_path"])
+        anomalies = [r for r in recs if r["kind"] == "anomaly"]
+        recoveries = [r for r in recs if r["kind"] == "recovery"]
+        print(f"resilience: nan_batch@5: anomalies {anomalies}, recoveries {recoveries}, "
+              f"losses {c['losses']}", flush=True)
+        assert c["anomalies"] == 1 and len(anomalies) == 1 and len(recoveries) == 1
+        assert anomalies[0]["gstep"] == 5 and recoveries[0]["resumed_from"] == 4
+        assert recoveries[0]["skipped_step"] == 5 and c["final_step"] == 8
+        assert len(c["losses"]) == 7 and all(math.isfinite(v) for v in c["losses"])
+        assert [r["gstep"] for r in recs if r["kind"] == "step"] == [0, 1, 2, 3, 4, 6, 7]
+
+        # (d) A data stall past the watchdog's budget: one dump with the
+        # card's memory lines.  No worker, so the fetch itself stalls.
+        err = _Tee(sys.stderr)
+        reset_all_counts()
+        with contextlib.redirect_stderr(err):
+            d, _ = _with_fault("stall_data@2:8", runner, DATA_FLAGS + [
+                "--app", "1", "--datapath", folder, "--num-workers", "0",
+                "--watchdog-secs", "5"])
+        runs["watchdog"] = d["launches"]
+        _runs_main_path(d, 4)
+        text = err.buf.getvalue()
+        dumps = text.count("watchdog: step 2 exceeded the 5.0s")
+        mem = [line for line in text.splitlines() if line.startswith("memory: device cuda")]
+        print(f"resilience: watchdog: {dumps} dump(s) at step 2; {mem}", flush=True)
+        assert dumps == 1 and text.count("watchdog:") == 1 and len(mem) == 1, text[-3000:]
+        assert d["final_step"] == 4 and all(math.isfinite(v) for v in d["losses"])
+        return runs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
@@ -2245,8 +2418,9 @@ def main() -> int:
     k3, k3_bwd = timed(phase_flash_kernels)
     timed(phase_ring)
     k3_launches = timed(phase_seq_slice)
-    data_launches = timed(phase_data_checkpoint)
+    data_launches, whole_losses = timed(phase_data_checkpoint)
     timed(phase_halo_tools)
+    resilience_launches = timed(phase_resilience, whole_losses)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"
@@ -2260,7 +2434,8 @@ def main() -> int:
 
     print(f"launches: pipeline runs {pp_launches}, local-DP run {ldp_launches}, "
           f"GEMS / SP x PP runs {gems_launches}, multi-level runs {ml_launches}, "
-          f"data + checkpoint run {data_launches}", flush=True)
+          f"data + checkpoint run {data_launches}, resilience runs "
+          f"{resilience_launches}", flush=True)
 
     entries = [
         dict(kernel_entry("halo_conv2d", SOURCE, K1_SRC,

@@ -6,19 +6,27 @@ with ``--device cpu``, else NCCL with one card per rank), build the mesh
 over the ranks (``mesh.build_process_mesh``: rank layout row-major over
 ``(data, stage, sph, spw)``), the model (random weights from ``--seed``,
 the same on every rank) and the family's step, then train as the JAX
-runner does (``benchmarks/common.py:449-604``): global step ``g`` takes
-batch ``g % --steps-per-epoch`` of ``data.make_dataset`` (``--app`` 1 image
-folder at ``--datapath``, 2 CIFAR-like, 3 synthetic from ``--seed``; a
-global batch of ``--batch-size`` images per data replica) through
-``prefetch_batches`` (``--num-workers`` > 0: a background thread), moved
-to the device as it arrives.  With ``--checkpoint-dir`` the run restores
-the newest valid checkpoint of the JAX runner's fingerprints and goes on
-from its step, saves once before the first step when the directory holds
-none, and at every epoch boundary (the synchronous saves of
-``resilience/loop.py:186-201, 432-444``).  It prints one line per step
-and the ``StepMeter`` summary (the first step is the warm-up).  The ``sp`` and
-``gems_sp`` families' last line also says whether the tile ranks' tails
-(this stage's cells after the junction) agree (``tail_agreement``).
+runner does (``benchmarks/common.py:449-605``): under the supervised loop
+(``resilience.run_supervised``: anomaly guard with rollback, preemption-
+safe saves through the background writer, ``MPI4DL_FAULT`` injection, the
+step watchdog ``--watchdog-secs`` / ``--watchdog-compile-secs``), global
+step ``g`` taking batch ``g % --steps-per-epoch`` of ``data.make_dataset``
+(``--app`` 1 image folder at ``--datapath``, 2 CIFAR-like, 3 synthetic
+from ``--seed``; a global batch of ``--batch-size`` images per data
+replica) through ``prefetch_batches`` (``--num-workers`` > 0: a background
+thread), moved to the device inside the timed step.  With
+``--checkpoint-dir`` the run restores the newest valid checkpoint of the
+JAX runner's fingerprints and goes on from its step; the loop saves once
+before the first step when the directory holds none, at every epoch
+boundary and on preemption (a preempted run returns normally: exit 0).
+``--telemetry-dir`` writes rank 0's RunLog (``obs/runlog.py``).  The ranks
+of a job take every decision together over a gloo group (the loop's
+"Ranks").  It prints one line per step, each save's wait and time to disk,
+and the ``StepMeter`` summary (the first step is the warm-up); the last
+line is the summary as JSON, with each step's ms and whether a background
+write overlapped it.  The ``sp`` and ``gems_sp`` families' last line also
+says whether the tile ranks' tails (this stage's cells after the junction)
+agree (``tail_agreement``).
 
 - ``lp``: ``--split-size 1`` trains on one device, or DP with
   ``--data-parallel``; more stages run ``make_pipeline_train_step`` with
@@ -38,32 +46,36 @@ and the ``StepMeter`` summary (the first step is the warm-up).  The ``sp`` and
 
 Run in one process with more than one rank in the mesh, it raises: the
 one-process tile grid and stage chain are reached only by calling the
-engines directly.  Telemetry and the supervised loop are not ported
-(``--telemetry-dir``: ROADMAP A15; ``--watchdog-secs``, the anomaly guard
-and the background checkpoint writer: A14).
+engines directly.  The RunLog's ``cost`` record and the ``.prom`` metrics
+snapshot are not ported (ROADMAP A15).
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
 import os
+import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from mpi4dl_tpu_torch import checkpoint as ckpt
 from mpi4dl_tpu_torch.cells import split_even
 from mpi4dl_tpu_torch.config import config_from_args, get_parser, resolve_pallas_conv
-from mpi4dl_tpu_torch.data import make_dataset, prefetch_batches
+from mpi4dl_tpu_torch.data import make_dataset
 from mpi4dl_tpu_torch.device import resolve_device
 from mpi4dl_tpu_torch.layer_ctx import spatial_levels_for
 from mpi4dl_tpu_torch.mesh import MeshSpec, build_process_mesh, initialize_distributed
 from mpi4dl_tpu_torch.models import build_model
+from mpi4dl_tpu_torch.obs.runlog import RunLog
 from mpi4dl_tpu_torch.ops import halo_conv
 from mpi4dl_tpu_torch.parallel.spatial import cell_output_shapes, choose_spatial_until
+from mpi4dl_tpu_torch.resilience import (
+    AnomalyGuard, FaultInjector, run_supervised, watchdog_budget_from_env,
+)
 from mpi4dl_tpu_torch.train import (
     Optimizer, TrainState, make_spatial_train_step, make_train_step,
 )
@@ -137,15 +149,6 @@ def spatial_levels(cfg, n_cells: int, in_shape, tiles=None, say=print):
         cut[-1] = (su, cut[-1][1])
         levels = cut
     return levels
-
-
-def _unported_flags(args):
-    if args.telemetry_dir is not None:
-        raise NotImplementedError("telemetry (--telemetry-dir) is not ported to "
-                                  "PyTorch yet (ROADMAP A15)")
-    if args.watchdog_secs is not None:
-        raise NotImplementedError("the step watchdog (--watchdog-secs) is not "
-                                  "ported to PyTorch yet (ROADMAP A14)")
 
 
 def _build(cfg, family: str, dev, mesh, say):
@@ -264,8 +267,9 @@ def checkpoint_manager(cfg, spec, steps_per_epoch: int, group=None):
 
 
 def run(family: str, model: str, argv=None, on_restore=None) -> dict:
-    """Parse flags, train, print; returns the summary dict (rank 0 prints).
-    ``on_restore(state, manager)`` is called after a checkpoint restore."""
+    """Parse flags, train under the supervised loop, print; returns the
+    summary dict (rank 0 prints).  ``on_restore(state, manager)`` is called
+    after a checkpoint restore."""
     p = get_parser()
     p.set_defaults(model=model)
     p.add_argument("--steps-per-epoch", type=int, default=10)
@@ -274,11 +278,20 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
     p.add_argument("--profile-dir", default=None,
                    help="profile one more step; per-rank device-time tables "
                         "go to this directory")
-    p.add_argument("--telemetry-dir", default=None)
-    p.add_argument("--watchdog-secs", type=float, default=None)
+    p.add_argument("--telemetry-dir", default=None,
+                   help="write a RunLog JSONL (meta, step, checkpoint, anomaly, "
+                        "recovery, preempt, quarantine and summary records) "
+                        "under this directory (rank 0)")
+    p.add_argument("--watchdog-secs", type=float, default=None,
+                   help="step wall-clock budget: a step (batch fetch + device "
+                        "step) exceeding it dumps live Python stacks, the last "
+                        "RunLog record and memory stats to stderr (default: "
+                        "MPI4DL_WATCHDOG_SECS, else off)")
+    p.add_argument("--watchdog-compile-secs", type=float, default=None,
+                   help="watchdog budget for the FIRST step (default: "
+                        "MPI4DL_WATCHDOG_COMPILE_SECS, else 10x the step budget)")
     args = p.parse_args(argv)
     cfg = config_from_args(args)
-    _unported_flags(args)
     if family not in ("lp", "gems", "sp", "gems_sp"):
         raise ValueError(f"unknown family {family!r}")
     if family in ("lp", "gems"):
@@ -309,94 +322,130 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
     batch = cfg.batch_size * spec.data
     steps = args.steps_per_epoch
     total = cfg.num_epochs * steps
-
-    mgr, start, saves, restore_ms = None, 0, [], None
-    if cfg.checkpoint_dir:
-        # The ranks agree on saves and restores over gloo, on any device.
-        group = dist.new_group(backend="gloo") if spec.size > 1 else None
-        mgr = checkpoint_manager(cfg, spec, steps, group)
-        t0 = time.perf_counter()
-        state, start = mgr.restore_latest(state)
-        if mgr.last_restore is not None:
-            restore_ms = (time.perf_counter() - t0) * 1e3
-            if on_restore is not None:
-                on_restore(state, mgr)
-        if start:
-            say(f"resuming from checkpoint step {start}", flush=True)
-        if mgr.last_restore is not None and mgr.last_restore.elastic:
-            say("note: ELASTIC restore — checkpoint was saved under a different "
-                f"layout ({mgr.last_restore.saved_layout}); leaves re-placed under "
-                "this run's mesh", flush=True)
-        if start >= total:
-            say(f"note: checkpoint step {start} already covers {cfg.num_epochs} "
-                f"epoch(s) x {steps} steps — nothing to run", flush=True)
-
-    def save(step_id: int) -> None:
-        t0 = time.perf_counter()
-        mgr.save(state, step_id)
-        st = mgr.last_save_stats  # rank 0's: every rank's shards, the slowest's times
-        saves.append({"step": step_id, "ms": (time.perf_counter() - t0) * 1e3,
-                      **({"bytes": st.bytes, "gather_ms": st.gather_ms,
-                          "write_ms": st.write_ms} if st is not None else {})})
-        say(f"checkpoint: step {step_id} saved in {saves[-1]['ms']:.1f} ms "
-            f"({saves[-1].get('bytes')} bytes; device-to-host "
-            f"{saves[-1].get('gather_ms', 0):.1f} ms, CRC32 + write + fsync "
-            f"{saves[-1].get('write_ms', 0):.1f} ms)", flush=True)
-
-    if mgr is not None and mgr.latest_path() is None:
-        save(start)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    dataset = make_dataset(cfg)
-    meter = StepMeter(batch, warmup_steps=1)
-    halo_conv.reset_launch_counts()
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    losses, x, y = [], None, None
-    # The meter times a step from its batch in hand (the JAX runner's);
-    # fetch_ms is the loop's wait for each batch (the decode when no worker
-    # runs ahead), so fed img/s, over both, prices the input pipeline.
-    fetch_ms = []
-    # closing: an exception mid-run stops the prefetch thread at once.
-    with contextlib.closing(prefetch_batches(dataset, batch, start, total,
-                                             index_of=lambda g: g % steps,
-                                             num_workers=cfg.num_workers)) as batches:
-        t_fetch = time.perf_counter()
-        for g, (xb, yb) in batches:
-            fetch_ms.append((time.perf_counter() - t_fetch) * 1e3)
-            sync()
+    # The ranks agree on saves, restores, rollbacks and preemption over gloo,
+    # on any device.
+    group = dist.new_group(backend="gloo") if spec.size > 1 else None
+    meter, runlog = StepMeter(batch, warmup_steps=1), None
+    try:
+        mgr, start, restore_ms = None, 0, None
+        if cfg.checkpoint_dir:
+            mgr = checkpoint_manager(cfg, spec, steps, group)
             t0 = time.perf_counter()
-            x = torch.from_numpy(xb).to(dev)
-            y = torch.from_numpy(yb).to(dev, torch.int64)
-            state, m = step(state, x, y)
-            losses.append(float(m["loss"]))  # synchronises
-            ms = (time.perf_counter() - t0) * 1e3
-            meter.add(ms)
-            say(f"step {g}: loss {losses[-1]:.6f}  {batch / ms * 1e3:.3f} "
-                f"img/s ({ms:.1f} ms)", flush=True)
-            if mgr is not None and (g + 1) % steps == 0:
-                save(g + 1)
-            t_fetch = time.perf_counter()
+            state, start = mgr.restore_latest(state)
+            if mgr.last_restore is not None:
+                restore_ms = (time.perf_counter() - t0) * 1e3
+                if on_restore is not None:
+                    on_restore(state, mgr)
+            if start:
+                say(f"resuming from checkpoint step {start}", flush=True)
+            if mgr.last_restore is not None and mgr.last_restore.elastic:
+                say("note: ELASTIC restore — checkpoint was saved under a different "
+                    f"layout ({mgr.last_restore.saved_layout}); leaves re-placed under "
+                    "this run's mesh", flush=True)
+            if start >= total:
+                say(f"note: checkpoint step {start} already covers {cfg.num_epochs} "
+                    f"epoch(s) x {steps} steps — nothing to run", flush=True)
+
+        runlog = None
+        if args.telemetry_dir and rank == 0:
+            runlog = RunLog.create(args.telemetry_dir, prefix=f"{family}-{cfg.model}")
+            runlog.write_meta(config=cfg, mesh_spec=spec, family=family, device=dev,
+                              argv=list(argv) if argv is not None else sys.argv[1:])
+            if mgr is not None and mgr.last_restore is not None:
+                runlog.write("restore", **mgr.last_restore.record())
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        # The loop times step_fn from the batch in hand (the JAX runner's): the
+        # host-to-device copy, the step and the wait for the card.
+        last = {}
+
+        def step_fn(st, xb, yb):
+            x = torch.from_numpy(np.asarray(xb)).to(dev)
+            y = torch.from_numpy(np.asarray(yb)).to(dev, torch.int64)
+            last.update(x=x, y=y)
+            st, m = step(st, x, y)
+            sync()
+            return st, m
+
+        losses, waits, step_ms, step_end, saves = [], [], [], [], []
+
+        def on_step(gstep, loss, ms, fetch_ms):
+            losses.append(loss)
+            waits.append(fetch_ms)
+            step_ms.append(ms)
+            step_end.append(time.perf_counter())
+
+        def on_checkpoint(st):
+            # Rank 0's stats: every rank's shards, the slowest rank's times.
+            saves.append({"step": st.step_id, "stall_ms": st.stall_ms,
+                          "durable_ms": st.durable_ms, "bytes": st.bytes,
+                          "gather_ms": st.gather_ms, "write_ms": st.write_ms,
+                          "peak_pending_bytes": st.peak_pending_bytes,
+                          "t_durable": time.perf_counter()})
+            say(f"checkpoint: step {st.step_id}: the training thread waited "
+                f"{st.stall_ms:.1f} ms, durable after {st.durable_ms:.1f} ms "
+                f"({st.bytes} bytes; device-to-host {st.gather_ms:.1f} ms, CRC32 + "
+                f"write + fsync {st.write_ms:.1f} ms; peak pending "
+                f"{st.peak_pending_bytes} bytes)", flush=True)
+
+        dataset = make_dataset(cfg)
+        halo_conv.reset_launch_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        result = run_supervised(
+            step_fn, state, dataset,
+            global_batch=batch, steps_per_epoch=steps, num_epochs=cfg.num_epochs,
+            num_workers=cfg.num_workers, start_step=start, ckpt=mgr,
+            runlog=runlog, meter=meter, print_fn=lambda line: say(line, flush=True),
+            profile=bool(args.profile_dir), guard=AnomalyGuard.from_env(),
+            faults=FaultInjector.from_env(),
+            watchdog_secs=watchdog_budget_from_env(args.watchdog_secs),
+            watchdog_compile_secs=args.watchdog_compile_secs,
+            group=group, on_step=on_step, on_checkpoint=on_checkpoint)
+    finally:
+        if runlog is not None:
+            runlog.write("summary", **meter.stats())
+            runlog.close()
+            say(f"telemetry written to {runlog.path}; its `cost` record and the "
+                "`.prom` metrics snapshot are not ported yet (obs/costs, "
+                "obs/metrics: ROADMAP A15)", flush=True)
+        if group is not None:
+            dist.destroy_process_group(group)
+    state = result.state
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     if peak is not None:
         print(f"rank {rank}: peak {peak / 2**30:.2f} GiB", flush=True)
-    if args.profile_dir and x is not None:
-        _profile_step(args.profile_dir, rank, lambda: step(state, x, y), dev, say)
+    if args.profile_dir and last:
+        _profile_step(args.profile_dir, rank, lambda: step(state, last["x"], last["y"]),
+                      dev, say)
     say(meter.summary(), flush=True)
-    fed = [f + m for f, m in zip(fetch_ms[1:], meter.times_ms)]  # after the warm-up
+    fed = [f + m for f, m in zip(waits[1:], meter.times_ms)]  # after the warm-up
+    # A step overlaps a background write when it ran between the end of a
+    # save's wait on the training thread and the save being durable (the
+    # step's end is taken just after the loop timed it).
+    writes = [(s["t_durable"] - (s["durable_ms"] - s["stall_ms"]) / 1e3, s["t_durable"])
+              for s in saves]
+    overlap = [any(b - ms / 1e3 < w1 and w0 < b for w0, w1 in writes)
+               for ms, b in zip(step_ms, step_end)]
+    for s in saves:
+        del s["t_durable"]
     out = {"images_per_sec": meter.images_per_sec(), "losses": losses,
-           "fetch_ms": fetch_ms,
+           "loss": result.metrics.get("loss", float("nan")),
+           "step_ms": step_ms, "write_overlap": overlap,
+           "fetch_ms": waits,
            "fed_images_per_sec": batch * len(fed) / sum(fed) * 1e3 if fed else None,
            "stats": meter.stats(), "peak_bytes": peak,
            "launches": dict(halo_conv.LAUNCHES), "ranks": spec.size,
-           "start_step": start, "final_step": start + len(losses),
+           "start_step": start, "final_step": result.final_step,
+           "preempted": result.preempted, "anomalies": result.anomalies,
            "elastic": bool(mgr is not None and mgr.last_restore is not None
                            and mgr.last_restore.elastic),
            "checkpoint": ({"saves": saves, "restore_ms": restore_ms}
                           if mgr is not None else None),
+           "telemetry_path": runlog.path if runlog is not None else None,
            **notes}
     if tail is not None:
         out.update(tail_agreement(tail, mesh.tiles.group))

@@ -534,8 +534,26 @@ class SaveStats:
     leaves: int = 0
     gather_ms: float = 0.0
     write_ms: float = 0.0
-    # Watermark of gathered-but-unwritten host bytes: one shard.
+    # Watermark of gathered-but-unwritten host bytes: one shard when the
+    # save is synchronous, up to the background writer's budget otherwise.
     peak_pending_bytes: int = 0
+    # How long the training thread waited for the save, and how long until
+    # the checkpoint was published on disk (equal for a synchronous save).
+    stall_ms: float = 0.0
+    durable_ms: float = 0.0
+
+    def record(self) -> dict:
+        """The ``checkpoint`` RunLog record's payload (the JAX package's
+        fields, then ``stall_ms`` and ``durable_ms``)."""
+        return {
+            "gstep": self.step_id, "path": self.path, "format": self.format,
+            "bytes": self.bytes, "shards": self.shards, "leaves": self.leaves,
+            "gather_ms": round(self.gather_ms, 3),
+            "write_ms": round(self.write_ms, 3),
+            "peak_pending_bytes": self.peak_pending_bytes,
+            "stall_ms": round(self.stall_ms, 3),
+            "durable_ms": round(self.durable_ms, 3),
+        }
 
 
 def _write_shard_file(path: str, view: np.ndarray) -> None:
@@ -885,6 +903,9 @@ class RestoreInfo:
     elastic: bool = False
     saved_layout: Optional[dict] = None
 
+    def record(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 # ---------------------------------------------------------------------------
 # Manager.
@@ -974,35 +995,42 @@ class CheckpointManager:
         self._prune()
         return stats
 
-    def save(self, state: Any, step_id: int) -> str:
-        """Save ``state`` in this manager's format; sharded, each rank
-        writes the leaves it owns (:func:`leaf_owners`) one shard at a time
-        and rank 0 publishes.  Returns the checkpoint's path."""
-        if self.format == "npz":
-            path = self.path_for(step_id)
-            arrays = state_to_arrays(state, step_id)
-            write_arrays(path, arrays, self.fingerprint)
-            self.last_save_stats = SaveStats(
-                path=path, step_id=step_id, format="npz",
-                bytes=sum(a.numel() * a.element_size() for a in arrays.values()),
-                leaves=len(arrays) - 1)
-            self._prune()
-            return path
+    def save_arrays(self, arrays: Dict[str, torch.Tensor], step_id: int) -> str:
+        """Write whole host leaves (:func:`state_to_arrays`) as the v1 npz
+        checkpoint of ``step_id``; returns its path."""
+        t0 = time.perf_counter()
+        path = self.path_for(step_id)
+        write_arrays(path, arrays, self.fingerprint)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.last_save_stats = SaveStats(
+            path=path, step_id=step_id, format="npz",
+            bytes=sum(a.numel() * a.element_size() for a in arrays.values()),
+            leaves=len(arrays) - 1, write_ms=ms, stall_ms=ms, durable_ms=ms)
+        self._prune()
+        return path
+
+    def plan_save(self, state: Any, step_id: int) -> Tuple[ShardedSaveTxn, List[Leaf], List[int]]:
+        """The first half of a sharded save, collective over the group:
+        ``(txn, leaves, ids)`` — this rank's transaction (rank 0 opens it,
+        the others join its temporary directory), the state's leaves, and
+        the ids of the leaves this rank writes (:func:`leaf_owners`)."""
         leaves = state_leaves(state)
         owners = leaf_owners(leaves, self.group)
         txn = self.begin_save(step_id) if self.rank == 0 else None
         tmp = _broadcast(txn._tmp if txn is not None else None, self.group)
         mine = txn or ShardedSaveTxn(self.path_for(step_id), step_id, tmpdir=tmp)
-        error = None
-        try:
-            _stream_leaves_into(mine, leaves, [i for i, o in enumerate(owners)
-                                               if o == self.rank])
-        except Exception as e:  # noqa: BLE001 — reported to every rank below
-            error = f"rank {self.rank}: {e!r}"
-        parts = _all_gather((error, mine._leaves, dataclasses.asdict(mine.stats)),
-                            self.group)
+        return mine, leaves, [i for i, o in enumerate(owners) if o == self.rank]
+
+    def commit_save(self, txn: ShardedSaveTxn, error: Optional[str], group) -> SaveStats:
+        """The second half, collective over ``group`` (the manager's, or
+        the background writer's own): the ranks exchange their errors and
+        manifest entries; rank 0 merges them and publishes, or aborts when
+        any rank failed; then every rank raises ``OSError`` if any failed.
+        Returns this rank's stats (rank 0's: every rank's shards, the
+        slowest's times)."""
+        parts = _all_gather((error, txn._leaves, dataclasses.asdict(txn.stats)), group)
         errors = [e for e, _, _ in parts if e is not None]
-        if txn is not None:
+        if self.rank == 0:
             if errors:
                 txn.abort()
             else:
@@ -1016,9 +1044,28 @@ class CheckpointManager:
                     self.finish_save(txn)
                 except Exception as e:  # noqa: BLE001 — reported to every rank below
                     errors.append(f"rank 0 commit: {e!r}")
-        errors = _broadcast(errors, self.group)
+        else:
+            self.last_save_stats = txn.stats
+        errors = _broadcast(errors, group)
         if errors:
-            raise OSError(f"checkpoint save at step {step_id} failed: {errors}")
+            raise OSError(f"checkpoint save at step {txn.step_id} failed: {errors}")
+        return txn.stats
+
+    def save(self, state: Any, step_id: int) -> str:
+        """Save ``state`` in this manager's format, synchronously; sharded,
+        each rank writes the leaves it owns (:func:`leaf_owners`) one shard
+        at a time and rank 0 publishes.  Returns the checkpoint's path."""
+        t0 = time.perf_counter()
+        if self.format == "npz":
+            return self.save_arrays(state_to_arrays(state, step_id), step_id)
+        txn, leaves, ids = self.plan_save(state, step_id)
+        error = None
+        try:
+            _stream_leaves_into(txn, leaves, ids)
+        except Exception as e:  # noqa: BLE001 — reported to every rank below
+            error = f"rank {self.rank}: {e!r}"
+        stats = self.commit_save(txn, error, self.group)
+        stats.stall_ms = stats.durable_ms = (time.perf_counter() - t0) * 1e3
         return self.path_for(step_id)
 
     def _load_local(self, path: str, template: Any, leaves: List[Leaf]):

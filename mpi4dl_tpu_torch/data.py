@@ -238,6 +238,7 @@ def prefetch_batches(
     num_workers: int = 0,
     retries: int = 2,
     backoff: float = 0.05,
+    stall_hook: Optional[Callable[[int], float]] = None,
 ) -> Iterator[Tuple[int, Tuple[np.ndarray, np.ndarray]]]:
     """Yield ``(gstep, (x, y))`` for global steps in ``[start, stop)``;
     the dataset index is ``index_of(gstep)`` (identity by default — the
@@ -253,10 +254,17 @@ def prefetch_batches(
     thread always terminates.  A producer-side exception rides the queue as
     a sentinel and re-raises in the consumer — a dead producer must not
     leave the consumer blocked on ``q.get()``.
+
+    ``stall_hook(gstep)`` (fault injection) returns seconds to sleep before
+    producing that batch — the watchdog's test stimulus.
     """
     idx_of = index_of if index_of is not None else (lambda g: g)
 
     def fetch(g: int) -> Tuple[np.ndarray, np.ndarray]:
+        if stall_hook is not None:
+            delay = stall_hook(g)
+            if delay:
+                time.sleep(delay)
         return fetch_batch_with_retry(
             dataset, idx_of(g), batch_size, retries=retries, backoff=backoff
         )

@@ -949,3 +949,29 @@ def test_jax_checkpoint_restores_onto_a_cuda_model(card):
     assert math.isclose(losses[0], losses[1], rel_tol=1e-5)
     for a, b in zip(states[1], states[3]):
         assert torch.allclose(a.double(), b.double(), rtol=1e-4, atol=1e-6)
+
+
+def test_supervised_runner_on_card(card, tmp_path, monkeypatch, capfd):
+    """The lp runner under the supervised loop on the card: the RunLog's
+    meta names the card and its step records carry the card's watermark; a
+    data stall past the watchdog's budget dumps the card's allocator line;
+    ``nan_batch`` rolls back once and the run ends with finite losses."""
+    from mpi4dl_tpu_torch.benchmarks.common import run
+    from mpi4dl_tpu_torch.obs import read_runlog
+
+    monkeypatch.setenv("MPI4DL_FAULT", "stall_data@2:1.0")
+    out = run("lp", "resnet", _RUNNER + ["--num-epochs", "2", "--watchdog-secs", "0.4",
+                                         "--telemetry-dir", str(tmp_path / "t")])
+    recs = read_runlog(out["telemetry_path"])
+    assert recs[0]["device_kind"] == torch.cuda.get_device_name(card)
+    assert recs[0]["platform"] == "gpu" and recs[0]["backend"] == "cuda"
+    steps = [r for r in recs if r["kind"] == "step"]
+    assert len(steps) == 4 and all(r["memory_peak_bytes"] > 0 for r in steps)
+    err = capfd.readouterr().err
+    assert err.count("watchdog: step 2 exceeded") == 1
+    assert f"memory: device cuda:0 ({torch.cuda.get_device_name(card)})" in err
+    monkeypatch.setenv("MPI4DL_FAULT", "nan_batch@2")
+    out = run("lp", "resnet", _RUNNER + ["--num-epochs", "2", "--checkpoint-dir",
+                                         str(tmp_path / "ck")])
+    assert out["anomalies"] == 1 and out["final_step"] == 4 and len(out["losses"]) == 3
+    assert all(math.isfinite(v) for v in out["losses"])

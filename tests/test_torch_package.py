@@ -37,6 +37,11 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"mpi4dl_tpu_torch/resilience/{m}.py" for m in (
+        "__init__", "faults", "guard", "preempt", "watchdog", "writer", "loop",
+        "supervisor")} | {"mpi4dl_tpu_torch/obs/runlog.py",
+                          "mpi4dl_tpu_torch/obs/flight.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), r) for f in files
            for r in _imported_roots(f) if r in FORBIDDEN]
     assert not bad, bad
@@ -48,7 +53,12 @@ def test_import_leaves_jax_unloaded():
             "mpi4dl_tpu_torch.ops.flash_attention, mpi4dl_tpu_torch.ops.ring, "
             "mpi4dl_tpu_torch.models.seqblock, mpi4dl_tpu_torch.mesh, "
             "mpi4dl_tpu_torch.benchmarks.common, "
-            "mpi4dl_tpu_torch.benchmarks.communication.ring.benchmark_ring_attention; "
+            "mpi4dl_tpu_torch.benchmarks.communication.ring.benchmark_ring_attention, "
+            "mpi4dl_tpu_torch.resilience, mpi4dl_tpu_torch.resilience.faults, "
+            "mpi4dl_tpu_torch.resilience.guard, mpi4dl_tpu_torch.resilience.preempt, "
+            "mpi4dl_tpu_torch.resilience.watchdog, mpi4dl_tpu_torch.resilience.writer, "
+            "mpi4dl_tpu_torch.resilience.loop, mpi4dl_tpu_torch.resilience.supervisor, "
+            "mpi4dl_tpu_torch.obs.runlog, mpi4dl_tpu_torch.obs.flight; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mpi4dl_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -169,7 +179,7 @@ def test_sp_runner_needs_its_ranks():
 
     with pytest.raises(RuntimeError, match="torchrun"):
         run("sp", "resnet", ["--device", "cpu", "--num-layers", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         run("sp", "resnet", ["--device", "cpu", "--telemetry-dir", "t"])
     with pytest.raises(RuntimeError, match="torchrun"):
         run("sp", "resnet", ["--device", "cpu", "--local-DP", "2"])
