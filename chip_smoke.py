@@ -203,7 +203,27 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    ``recovery`` record (back to ``ckpt_4``, batch 5 skipped), finite
    losses.  (d) ``--watchdog-secs 5`` with ``stall_data@2:8`` and no
    worker: exactly one stack dump, with the card's memory line.
-23. The kernels' JSON line, the card line, and last the result line.  K1's
+23. Quantized collectives (``--quant``, ``quant/``): (a) encode and decode
+   on the card at the SP AmoebaNet 2048² junction activation's folded
+   shape (bf16; the largest leaf entering the junction on the 2x2 grid)
+   and at a flat fp32 gradient of AmoebaNet-D(18, 416)'s size, in int8,
+   fp8 and int4: payload, scales and decode bitwise the CPU's, and the
+   round trip's device ms (a CUDA graph, as phase 2) beside a ``copy_``.
+   (b) phase 8's SP AmoebaNet-D(18, 416) 2048² bs1 step (2x2 grid, D2, the
+   kernels on, bf16) 4 steps with ``--quant int8`` and 4 off from one
+   seed; (c) phase 15's SP x PP AmoebaNet 1024² bs4 step (grid + 2 tail
+   stages) with ``junction=int8,handoff=int8,grad=int8`` against off.
+   Each step's K1/K2 launches equal the dry run's (80 + 80 on the SP
+   AmoebaNet step), losses finite, the quantized run's last below its
+   first and each within 5% of the exact one (``tests/test_quant.py:
+   494-514``); the first step's gradients against the exact run's, over
+   all parameters and over the first cell's, by relative L2 and norm
+   ratio (``QUANT_GRAD``), and each quantized class at most 0.55 of its
+   raw bytes; step ms, peak memory and the wire/raw bytes per class (what
+   the grid's ranks would send) are printed for both, and beside them the
+   exact run on an input moved by 2^-8 (its loss gap and first-gradient
+   gap: how far the exact step itself moves).
+24. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -211,7 +231,7 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
    GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-19 run between phases 3 and 4, phases 20-22 after phase 6, each
+Phases 7-19 run between phases 3 and 4, phases 20-23 after phase 6, each
 printing its seconds.  The
 dry runs (meta device, CPU only) run in three worker processes from the
 start, beside phases 1-3.
@@ -595,12 +615,13 @@ SP_PATHS = {"amoebanet_2048_sp_d2": SP_AMOEBA, "resnet110_1024_sp_d2": SP_RESNET
 
 
 def sp_parts(dev, arch, image, depth, d2=True, pallas=True, dtype=None, batch=1,
-             local_dp=None):
+             local_dp=None, quant=None, opt=None):
     """(model, step, state) of an SP training step on a 2x2 square grid of
     tiles in this process: 416 filters (AmoebaNet), 1000 classes, batch 1,
-    SGD lr 1e-3, remat off, bf16 compute unless ``dtype`` says otherwise,
-    weights from seed 0 (the SP runners' ``--seed`` default); ``local_dp``
-    takes the ``batch_split`` junction of that degree."""
+    SGD lr 1e-3 (or ``opt``), remat off, bf16 compute unless ``dtype`` says
+    otherwise, weights from seed 0 (the SP runners' ``--seed`` default);
+    ``local_dp`` takes the ``batch_split`` junction of that degree;
+    ``quant`` a ``QuantPolicy`` spec."""
     import torch
 
     from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
@@ -616,10 +637,13 @@ def sp_parts(dev, arch, image, depth, d2=True, pallas=True, dtype=None, batch=1,
         model = get_resnet_v2(shape, depth, 1000, device=dev, seed=0)
     sp = spatial_ctx_for("square", 4, tiles=TileGrid(2, 2), d2_mode=d2,
                          use_pallas_conv=pallas)
-    opt = Optimizer("sgd", lr=1e-3)
+    opt = opt or Optimizer("sgd", lr=1e-3)
+    from mpi4dl_tpu_torch.quant import QuantPolicy
+
     step = make_spatial_train_step(
         model, opt, sp, compute_dtype=dtype or torch.bfloat16,
-        junction="batch_split" if local_dp else "gather", local_dp=local_dp)
+        junction="batch_split" if local_dp else "gather", local_dp=local_dp,
+        quant=QuantPolicy.parse(quant))
     return model, step, TrainState.create(model, opt)
 
 
@@ -1519,9 +1543,10 @@ def gems_parts(dev, schedule):
     return model, step, init_pipeline_state(part, opt, StageChain(GEMS_SPLIT))
 
 
-def sppp_parts(dev, engine):
+def sppp_parts(dev, engine, quant=None, opt=None):
     """(model, step, state) of the SP x PP (``engine`` "sp_pp") or SP +
-    GEMS ("sp_gems") step on the one-process 2x2 grid and stage chain."""
+    GEMS ("sp_gems") step on the one-process 2x2 grid and stage chain;
+    ``quant`` a ``QuantPolicy`` spec, ``opt`` the optimizer (SGD lr 1e-3)."""
     import torch
 
     from mpi4dl_tpu_torch.layer_ctx import spatial_ctx_for
@@ -1543,9 +1568,11 @@ def sppp_parts(dev, engine):
     parts = 1 if gems else 2
     spp = SPPipeline.build(model, SPPP_SPLIT, sp, SPPP_BATCH // (2 * parts if gems else parts),
                            junction="gather")
-    opt = Optimizer("sgd", lr=1e-3)
+    opt = opt or Optimizer("sgd", lr=1e-3)
     chain = StageChain(SPPP_SPLIT)
-    kw = dict(compute_dtype=torch.bfloat16, remat=False)
+    from mpi4dl_tpu_torch.quant import QuantPolicy
+
+    kw = dict(compute_dtype=torch.bfloat16, remat=False, quant=QuantPolicy.parse(quant))
     step = (make_sp_gems_train_step(spp, opt, chain, parts, times=1, **kw) if gems
             else make_sp_pipeline_train_step(spp, opt, chain, parts, **kw))
     return model, step, init_sp_pipeline_state(spp, opt, chain)
@@ -2339,6 +2366,162 @@ def phase_resilience(whole_losses):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# The quantization phase: the per-class policy of --quant (quant/) on the
+# SP AmoebaNet 2048² step and the SP x PP 1024² step, each against its
+# exact run from the same seed.
+QUANT_SP = "int8"
+QUANT_SPPP = "junction=int8,handoff=int8,grad=int8"
+QUANT_GAP = 0.05  # tests/test_quant.py:494-514: |quantized - exact| <= 5%
+# The first step's gradients, quantized against exact, over all parameters
+# and over the first cell's: relative L2 of the difference above a floor
+# (the policy changed something; its encode skipped reads 0) and below a
+# reversed gradient's 2; norm ratio about 1 (a dropped cotangent reads 0).
+# Sound readings on the H100: relative L2 0.072 (SP), 1.39 (SP x PP, as
+# the exact step's own under QUANT_PROBE), norm ratio 0.995-1.000.
+QUANT_GRAD = {"rel": (1e-3, 1.6), "ratio": (0.8, 1.25)}
+QUANT_PROBE = 2.0 ** -8  # relative input perturbation of the exact step
+QUANT_BYTES = 0.55  # wire / raw bytes of each int8 class that moved bytes
+
+
+def quant_codec_check(name, x, iters):
+    """Encode + decode of ``x`` on the card in every mode: payload and
+    scales bitwise those of the CPU, and device ms of the round trip (a
+    CUDA graph of ``iters`` calls, the median of 5 replays) beside a plain
+    ``copy_`` of ``x``."""
+    import torch
+
+    from mpi4dl_tpu_torch.quant import collectives as qc
+    from mpi4dl_tpu_torch.quant.kernels import MODES, roundtrip
+
+    cpu = x.cpu()
+    out = torch.empty_like(x)
+    copy_ms = graph_ms(lambda: out.copy_(x), iters)
+    for mode in MODES:
+        q, s = qc.encode(x, mode, 256)
+        qh, sh = qc.encode(cpu, mode, 256)
+        assert q.is_cuda and torch.equal(q.cpu(), qh), f"{name} {mode}: payload differs"
+        assert torch.equal(s.cpu().view(torch.int32), sh.view(torch.int32)), \
+            f"{name} {mode}: scales differ"
+        y = qc.decode(q, s, mode, 256, x.shape[-1], x.dtype)
+        yh = qc.decode(qh, sh, mode, 256, x.shape[-1], x.dtype)
+        assert torch.equal(y.cpu().view(torch.uint8), yh.contiguous().view(torch.uint8)), \
+            f"{name} {mode}: decode differs"
+        del q, s, y, qh, sh, yh
+        ms = graph_ms(lambda: roundtrip(x, mode, 256), iters)
+        wire = qc.encoded_nbytes(tuple(x.shape), mode, 256)
+        print(f"quant: {name} {tuple(x.shape)} {x.dtype} {mode}: encode + decode "
+              f"bitwise the CPU's; {ms:.4f} ms on the card (copy_ {copy_ms:.4f} ms), "
+              f"wire {wire} bytes vs raw {x.numel() * x.element_size()}", flush=True)
+        torch.cuda.empty_cache()
+
+
+def quant_ab(dev, label, build, pred, spec, batch):
+    """``build(quant, opt)``'s step trained 4 steps with ``spec`` and 4 with
+    the policy off, from one seed: launches held to the dry run each step,
+    losses finite, the quantized run's last below its first and each
+    within 5% of the exact one's; the first step's gradients held to the
+    exact run's (``QUANT_GRAD``), over all parameters and over the first
+    cell's, which sit behind every quantized wire of the backward; each
+    class of ``spec`` that moved bytes at most ``QUANT_BYTES`` of its raw
+    bytes.  Beside them, the exact run again on an input moved by
+    ``QUANT_PROBE`` of itself: its loss gap and how far its first
+    gradients move.  Prints step ms, peak memory and the bytes per
+    class."""
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.quant_sensitivity import (
+        FirstGrads, first_cell_positions, grad_gap,
+    )
+    from mpi4dl_tpu_torch.quant import QuantPolicy
+    from mpi4dl_tpu_torch.quant import collectives as qc
+
+    runs, grads, ratios = {}, {}, {}
+    for name in (spec, None):
+        opt = FirstGrads("sgd", lr=1e-3)
+        parts = build(name, opt)
+        qc.reset_wire_bytes()
+        losses, times, peak, _ = sp_train(dev, parts, pred, 4, f"{label} quant {name or 'off'}",
+                                          batch=batch)
+        runs[name] = losses
+        grads[name] = [g for _, g in opt.grads]
+        cell0 = first_cell_positions(parts[0], opt)
+        by = {c: f"{qc.WIRE_BYTES[c]}/{qc.RAW_BYTES[c]}" for c in qc.CLASSES}
+        if name:
+            ratios = {c: qc.WIRE_BYTES[c] / qc.RAW_BYTES[c] for c in qc.CLASSES
+                      if QuantPolicy.parse(name).mode(c) and qc.RAW_BYTES[c]}
+        print(f"quant: {label} --quant {name or 'off'}: {1e3 * sum(times) / len(times):.1f} "
+              f"ms/step over {len(times)} steps, peak {peak / 2**30:.2f} GiB, losses "
+              f"{[round(v, 6) for v in losses]}, wire/raw bytes over 4 steps {by}",
+              flush=True)
+        del parts, opt
+        torch.cuda.empty_cache()
+    opt = FirstGrads("sgd", lr=1e-3)
+    model, step, state = build(None, opt)
+    x, y = sp_batch(dev, model.in_shape[1], batch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = x * (1 + QUANT_PROBE * torch.randn(x.shape, generator=gen, device=dev))
+    probe_losses = [float(step(state, x, y)[1]["loss"]) for _ in range(4)]
+    probe = [g for _, g in opt.grads]
+    del model, step, state, opt
+    torch.cuda.empty_cache()
+    q, exact = grads[spec], grads[None]
+    got = {"all": grad_gap(q, exact), "cell0": grad_gap(q, exact, cell0)}
+    moved = {"all": grad_gap(probe, exact), "cell0": grad_gap(probe, exact, cell0)}
+    del grads, probe, q, exact
+    torch.cuda.empty_cache()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(runs[spec], runs[None])]
+    probe_gap = max(abs(a - b) / abs(b) for a, b in zip(probe_losses, runs[None]))
+    print(f"quant: {label}: largest relative loss gap {max(gaps):.5f} (gate {QUANT_GAP}); "
+          f"wire / raw bytes {({c: round(v, 4) for c, v in ratios.items()})} "
+          f"(gate {QUANT_BYTES}); "
+          f"first-step gradient against the exact run's: relative L2 all "
+          f"{got['all'][0]:.4e}, first cell {got['cell0'][0]:.4e}; norm ratio all "
+          f"{got['all'][1]:.4f}, first cell {got['cell0'][1]:.4f} (gate {QUANT_GRAD}); "
+          f"the exact step, input moved by {QUANT_PROBE:.4g}: losses "
+          f"{[round(v, 6) for v in probe_losses]}, gap {probe_gap:.5f}, relative L2 all "
+          f"{moved['all'][0]:.4e}, first cell {moved['cell0'][0]:.4e}; norm ratio all "
+          f"{moved['all'][1]:.4f}, first cell {moved['cell0'][1]:.4f}", flush=True)
+    assert max(gaps) <= QUANT_GAP, f"{label}: loss gaps {gaps}"
+    assert runs[spec][-1] < runs[spec][0], f"{label}: quantized run did not descend"
+    assert ratios and max(ratios.values()) <= QUANT_BYTES, f"{label}: bytes {ratios}"
+    for part, (rel, ratio) in got.items():
+        assert QUANT_GRAD["rel"][0] < rel <= QUANT_GRAD["rel"][1], (label, part, rel)
+        assert QUANT_GRAD["ratio"][0] <= ratio <= QUANT_GRAD["ratio"][1], (label, part, ratio)
+
+
+def phase_quant(preds):
+    """Quantized collectives (module docstring, phase 23)."""
+    import torch
+
+    from mpi4dl_tpu_torch.models import amoebanetd
+    from mpi4dl_tpu_torch.parallel.spatial import cell_output_shapes
+
+    dev = torch.device("cuda")
+    meta = amoebanetd((1, 2048, 2048, 3), num_classes=1000, num_layers=18,
+                      num_filters=416, device="meta", seed=0)
+    su = len(meta.cells) - 1
+    shapes = cell_output_shapes(meta, (1, 2048, 2048, 3))[su - 1]
+    shapes = shapes if isinstance(shapes[0], (tuple, list)) else (shapes,)
+    junction = max(shapes, key=lambda sh: math.prod(sh))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    x = torch.randn(junction, generator=gen, device=dev).to(torch.bfloat16)
+    quant_codec_check("SP AmoebaNet 2048^2 junction activation", x, 20)
+    n = sum(p.numel() for p in meta.parameters())
+    del x, meta
+    g = torch.randn((n,), generator=gen, device=dev) * 1e-3
+    quant_codec_check("AmoebaNet-D(18, 416) fp32 gradient", g, 10)
+    del g
+    torch.cuda.empty_cache()
+    quant_ab(dev, "amoebanet_2048_sp_d2",
+             lambda q, opt: sp_parts(dev, "amoebanet", 2048, 18, quant=q, opt=opt),
+             preds["amoebanet_2048_sp_d2"], QUANT_SP, 1)
+    quant_ab(dev, "amoebanet_1024_sp_pp_grid",
+             lambda q, opt: sppp_parts(dev, "sp_pp", q, opt),
+             preds["amoebanet_1024_sp_pp_grid"], QUANT_SPPP, SPPP_BATCH)
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -2421,6 +2604,7 @@ def main() -> int:
     data_launches, whole_losses = timed(phase_data_checkpoint)
     timed(phase_halo_tools)
     resilience_launches = timed(phase_resilience, whole_losses)
+    timed(phase_quant, preds)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"

@@ -26,7 +26,14 @@ and the ``StepMeter`` summary (the first step is the warm-up); the last
 line is the summary as JSON, with each step's ms and whether a background
 write overlapped it.  The ``sp`` and ``gems_sp`` families' last line also
 says whether the tile ranks' tails (this stage's cells after the junction)
-agree (``tail_agreement``).
+agree (``tail_agreement``).  ``--quant`` (or the
+``MPI4DL_QUANT_COLLECTIVES`` hatch, which wins) is resolved once
+(``quant.QuantPolicy.resolve``; rank 0 prints ``note: quantized
+collectives on: <spec>`` to stderr when it is on), passed to every family's
+step but the single-device/DP one (JAX's ``build_train``), and recorded in
+the checkpoint layout as ``quant_resolved``; the last line carries the
+step's collective bytes per class (``wire_bytes``, ``raw_bytes``: this
+rank's sends over the whole run, ``quant.collectives.WIRE_BYTES``).
 
 - ``lp``: ``--split-size 1`` trains on one device, or DP with
   ``--data-parallel``; more stages run ``make_pipeline_train_step`` with
@@ -73,6 +80,8 @@ from mpi4dl_tpu_torch.models import build_model
 from mpi4dl_tpu_torch.obs.runlog import RunLog
 from mpi4dl_tpu_torch.ops import halo_conv
 from mpi4dl_tpu_torch.parallel.spatial import cell_output_shapes, choose_spatial_until
+from mpi4dl_tpu_torch.quant import QuantPolicy
+from mpi4dl_tpu_torch.quant import collectives as qc
 from mpi4dl_tpu_torch.resilience import (
     AnomalyGuard, FaultInjector, run_supervised, watchdog_budget_from_env,
 )
@@ -151,10 +160,11 @@ def spatial_levels(cfg, n_cells: int, in_shape, tiles=None, say=print):
     return levels
 
 
-def _build(cfg, family: str, dev, mesh, say):
+def _build(cfg, family: str, dev, mesh, say, quant=None):
     """(step, state, notes, tail cells) of the family at ``cfg`` on this
     rank; the tail cells are those whose replicas the tile ranks must agree
-    on (None outside the spatial families)."""
+    on (None outside the spatial families).  ``quant``: the resolved
+    quantization policy."""
     from mpi4dl_tpu_torch.parallel.gems import gems_local_stages, make_gems_train_step
     from mpi4dl_tpu_torch.parallel.partition import StagePartition
     from mpi4dl_tpu_torch.parallel.pipeline import (
@@ -193,7 +203,7 @@ def _build(cfg, family: str, dev, mesh, say):
             balance=cfg.balance)
         stages = stage_backend()
         kw = dict(compute_dtype=cfg.compute_dtype, remat=cfg.remat, with_data_axis=data,
-                  schedule=cfg.schedule, pallas_conv=pallas)
+                  schedule=cfg.schedule, pallas_conv=pallas, quant=quant)
         if family == "gems":
             part.release_others(gems_local_stages(stages))
             step = make_gems_train_step(part, opt, stages, cfg.parts, times=cfg.times, **kw)
@@ -218,7 +228,7 @@ def _build(cfg, family: str, dev, mesh, say):
         step = make_spatial_train_step(
             mdl, opt, sp, parts=cfg.parts, compute_dtype=cfg.compute_dtype,
             spatial_until=su, remat=cfg.remat, junction=junction, local_dp=local_dp,
-            with_data_axis=data, levels=levels)
+            with_data_axis=data, levels=levels, quant=quant)
         return step, TrainState.create(mdl, opt), notes, mdl.cells[su:]
     if cfg.split_size < 2:
         raise ValueError("the gems_sp family needs --split-size >= 2 (the tail's stages)")
@@ -232,7 +242,7 @@ def _build(cfg, family: str, dev, mesh, say):
                            levels=levels)
     stages = stage_backend()
     kw = dict(compute_dtype=cfg.compute_dtype, remat=cfg.remat, with_data_axis=data,
-              schedule=cfg.schedule)
+              schedule=cfg.schedule, quant=quant)
     if gems:
         spp.tail_part.release_others(gems_local_stages(stages))
         step = make_sp_gems_train_step(spp, opt, stages, cfg.parts, times=cfg.times, **kw)
@@ -252,11 +262,12 @@ def checkpoint_manager(cfg, spec, steps_per_epoch: int, group=None):
     JAX runner's fingerprints (``benchmarks/common.py:475-520``):
     ``steps_per_epoch`` is identity (it maps global steps to batches), the
     resolved quantization policy and stripe hatch are layout."""
+    quant = QuantPolicy.resolve(cfg.quant_collectives)
     identity, layout, desc = ckpt.split_config_fingerprint(
         cfg, spec,
         extra_identity={"steps_per_epoch": steps_per_epoch},
         extra_layout={
-            "quant_resolved": "off",
+            "quant_resolved": quant.spec() if quant is not None else "off",
             "stripe_bwd_resolved": os.environ.get("MPI4DL_STRIPE_BWD", "0"),
         },
     )
@@ -318,7 +329,11 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
         f"({torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}); "
         f"mesh data {spec.data} stage {spec.stage} tiles {spec.sph}x{spec.spw}",
         flush=True)
-    step, state, notes, tail = _build(cfg, family, dev, mesh, say)
+    quant = QuantPolicy.resolve(cfg.quant_collectives)
+    if quant is not None and rank == 0:
+        print(f"note: quantized collectives on: {quant.spec()}", file=sys.stderr,
+              flush=True)
+    step, state, notes, tail = _build(cfg, family, dev, mesh, say, quant)
     batch = cfg.batch_size * spec.data
     steps = args.steps_per_epoch
     total = cfg.num_epochs * steps
@@ -393,6 +408,7 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
 
         dataset = make_dataset(cfg)
         halo_conv.reset_launch_counts()
+        qc.reset_wire_bytes()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         result = run_supervised(
@@ -415,6 +431,7 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
         if group is not None:
             dist.destroy_process_group(group)
     state = result.state
+    wire, raw = dict(qc.WIRE_BYTES), dict(qc.RAW_BYTES)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     if peak is not None:
         print(f"rank {rank}: peak {peak / 2**30:.2f} GiB", flush=True)
@@ -439,6 +456,8 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
            "fed_images_per_sec": batch * len(fed) / sum(fed) * 1e3 if fed else None,
            "stats": meter.stats(), "peak_bytes": peak,
            "launches": dict(halo_conv.LAUNCHES), "ranks": spec.size,
+           "quant": quant.spec() if quant is not None else "off",
+           "wire_bytes": wire, "raw_bytes": raw,
            "start_step": start, "final_step": result.final_step,
            "preempted": result.preempted, "anomalies": result.anomalies,
            "elastic": bool(mgr is not None and mgr.last_restore is not None

@@ -5,9 +5,8 @@ The parser keeps the JAX package's flag vocabulary (itself the reference's,
 single-device engine, data parallelism, spatial parallelism (D1 and D2,
 the ``gather`` and ``batch_split`` junctions, multi-level
 ``--num-spatial-parts`` lists, ``--stripe-bwd``), the LP/PP pipelines
-(GPipe, 1F1B), GEMS (``--times``) and SP x PP / SP + GEMS; a
-flag that asks for an engine not ported yet raises NotImplementedError
-naming its ROADMAP item instead of being ignored.
+(GPipe, 1F1B), GEMS (``--times``), SP x PP / SP + GEMS and the quantized
+collectives (``--quant``, ``quant/``).
 """
 
 from __future__ import annotations
@@ -86,10 +85,11 @@ class ParallelConfig:
         if self.balance is not None and (len(self.balance) != self.split_size):
             raise ValueError(f"--balance {self.balance} needs {self.split_size} "
                              "entries (--split-size)")
-        if self.quant_collectives != "off":
-            raise NotImplementedError(
-                "quantized collectives (--quant) is not ported to PyTorch yet "
-                "(ROADMAP A13)")
+        # A malformed quant spec fails here (ValueError naming the token);
+        # the MPI4DL_QUANT_COLLECTIVES hatch is resolved when a step builds.
+        from mpi4dl_tpu_torch.quant.policy import QuantPolicy
+
+        QuantPolicy.parse(self.quant_collectives)
 
 
 def resolve_pallas_conv(setting: Optional[bool]) -> bool:
@@ -138,7 +138,12 @@ def get_parser() -> argparse.ArgumentParser:
                         "through the hand-written K1/K2 CUDA kernels")
     p.add_argument("--no-pallas-conv", action="store_const", const=False,
                    dest="pallas_conv")
-    p.add_argument("--quant", dest="quant_collectives", type=str, default="off")
+    p.add_argument("--quant", dest="quant_collectives", type=str,
+                   default="off", metavar="SPEC",
+                   help="quantized-collective policy: off (default, "
+                        "bit-identical), int8|fp8|int4 for every hot class, "
+                        "or per-class junction=...,respatial=...,grad=...,"
+                        "handoff=...[,block=N]")
     p.add_argument("--stripe-bwd", action="store_true")
     p.add_argument("--spatial-until", default=None, type=_spatial_until_arg)
     p.add_argument("--checkpoint-dir", type=str, default=None)

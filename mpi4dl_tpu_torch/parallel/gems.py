@@ -23,6 +23,11 @@ The loss and accuracy are summed over the stage group outside autograd
 and divided by 2·times·Pn; each stream's last stage seeds its backward
 with 1/(2·times·Pn).  ``--enable-master-comm-opt`` has nothing to do:
 with one weight set the replicas cannot diverge.
+
+``quant`` (``quant.QuantPolicy``): the handoffs and the data axis's
+reductions as in ``parallel/pipeline.py``; the mirror moves parameters,
+gradients and statistics home exactly, never through the quantized wire
+(``stage_common.py:38-39``).
 """
 
 from __future__ import annotations
@@ -133,7 +138,7 @@ def make_gems_train_step(part: StagePartition, optimizer: Optimizer, stages,
                          parts: int, times: int = 1, compute_dtype=torch.float32,
                          remat: bool = True, with_data_axis=None,
                          loss_scale: float = 1.0, schedule: str = "gpipe",
-                         pallas_conv: bool = False):
+                         pallas_conv: bool = False, quant=None):
     """``step(state, x, labels) -> (state, metrics)``: ``x`` is
     ``[2·times·parts·mb, H, W, C]`` per data replica, laid out as
     ``x.reshape(times, 2, parts, mb, ...)`` (``gems.py:109-112``): pair
@@ -164,9 +169,9 @@ def make_gems_train_step(part: StagePartition, optimizer: Optimizer, stages,
             mirror.pull()
         with scope("gems_1f1b_scan" if schedule == "1f1b" else "gems_dual_scan"):
             res = gems_dual(part, stages, ctx, xs, ys, seed=seed, schedule=schedule,
-                            remat=remat)
+                            remat=remat, quant=quant)
         grads, stats = combine_streams(res, mirror, stages.local_stages)
         return finish_step(state, optimizer, params, grads, stats, res.loss,
-                           res.accuracy, denom, loss_scale, stages, data)
+                           res.accuracy, denom, loss_scale, stages, data, quant)
 
     return step

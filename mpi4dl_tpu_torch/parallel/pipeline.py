@@ -13,6 +13,12 @@ seeds its backward with 1/Pn per micro-batch, and no cotangent is
 all-reduced.  With a data axis each replica trains on its slice of the
 batch, and the gradients and the running statistics are averaged over
 the replicas in one all-reduce (``grad_pmean``).
+
+``quant`` (``quant.QuantPolicy``, None: off): the stage and cotangent
+handoffs cross the ``handoff`` class's wire (``parallel/stages.py``) and,
+under the ``grad`` class, the gradients and then the running statistics
+are averaged over the data replicas through the EQuARX mean
+(``pipeline.py:93-101, 220-226``); the loss reduction stays exact.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
 from mpi4dl_tpu_torch.obs.scopes import scope
 from mpi4dl_tpu_torch.parallel.partition import StagePartition
 from mpi4dl_tpu_torch.parallel.stage_common import gpipe, one_f_one_b
+from mpi4dl_tpu_torch.quant import collectives as qc
+from mpi4dl_tpu_torch.quant.policy import class_mode
 from mpi4dl_tpu_torch.train import (
     Optimizer, TrainState, data_shard, merge_stat_updates,
 )
@@ -45,7 +53,8 @@ def make_pipeline_train_step(part: StagePartition, optimizer: Optimizer, stages,
                              parts: int, compute_dtype=torch.float32,
                              remat: bool = True, with_data_axis=None,
                              loss_scale: float = 1.0,
-                             schedule: str = "gpipe", pallas_conv: bool = False):
+                             schedule: str = "gpipe", pallas_conv: bool = False,
+                             quant=None):
     """``step(state, x, labels) -> (state, metrics)``: ``x`` is the global
     batch, ``parts * microbatch`` images per data replica.
 
@@ -71,14 +80,15 @@ def make_pipeline_train_step(part: StagePartition, optimizer: Optimizer, stages,
         y_parts = labels.chunk(parts)
         if schedule == "1f1b":
             with scope("pp_1f1b"):
-                res = one_f_one_b(part, stages, ctx, x_parts, y_parts, seed=seed)
+                res = one_f_one_b(part, stages, ctx, x_parts, y_parts, seed=seed,
+                                  quant=quant)
         else:
             with scope("gpipe"):
                 res = gpipe(part, stages, ctx, x_parts, y_parts, seed=seed,
-                            remat=remat)
+                            remat=remat, quant=quant)
         grads = [g for s in stages.local_stages for g in res.grads[s]]
         return finish_step(state, optimizer, params, grads, res.stats, res.loss,
-                           res.accuracy, parts, loss_scale, stages, data)
+                           res.accuracy, parts, loss_scale, stages, data, quant)
 
     return step
 
@@ -91,20 +101,33 @@ def stage_ctx(pallas_conv: bool) -> ApplyCtx:
 
 
 def finish_step(state: TrainState, optimizer: Optimizer, params, grads, stats, loss,
-                acc, denom: int, loss_scale: float, stages, data):
+                acc, denom: int, loss_scale: float, stages, data, quant=None):
     """The end of a pipeline (or GEMS) step: the running-statistics sums
     and the metrics divided by the ``denom`` micro-batches they were summed
     over; gradients (unscaled) and statistics averaged over the data
-    replicas in one all-reduce; the update; the loss, which lives on the
-    last stage, summed over the stages (the others hold zero) and averaged
-    over the replicas, outside autograd."""
+    replicas in one all-reduce (under ``quant``'s ``grad`` class: the
+    gradients, then the statistics, through the quantized mean); the
+    update; the loss, which lives on the last stage, summed over the stages
+    (the others hold zero) and averaged over the replicas, outside
+    autograd and exact."""
     stats = {bn: (m / denom, v / denom) for bn, (m, v) in stats.items()}
-    tensors = grads + [t for mv in stats.values() for t in mv]
+    st = [t for mv in stats.values() for t in mv]
+    tensors = grads + st
     inv = 1.0 / data.size if data is not None else 1.0
-    with scope("grad_reduce"):
-        all_reduce_scaled_(tensors, [inv / loss_scale] * len(grads)
-                           + [inv] * (len(tensors) - len(grads)),
-                           None if data is None else data.group)
+    grad_mode, block = class_mode(quant, "grad")
+    if grad_mode and data is not None:
+        wire = (data.group, (data.size,), (0,), grad_mode, block)
+        with scope("grad_reduce"):
+            qc.quantized_reduce_scaled_(grads, [inv / loss_scale] * len(grads), *wire)
+        with scope("stats_reduce"):
+            qc.quantized_reduce_scaled_(st, [inv] * len(st), *wire)
+    else:
+        if data is not None:
+            qc.tally_all_reduce("grad", 4 * sum(t.numel() for t in tensors), data.size)
+        with scope("grad_reduce"):
+            all_reduce_scaled_(tensors, [inv / loss_scale] * len(grads)
+                               + [inv] * (len(tensors) - len(grads)),
+                               None if data is None else data.group)
     with scope("optimizer_update"):
         state.opt_state = optimizer.update(params, grads, state.opt_state)
     merge_stat_updates(stats)

@@ -34,6 +34,16 @@ phase 1's index map to the labels.  With ``levels`` (multi-level SP,
 level 0 unreplicated, ``:140-150``) the region runs level by level; a
 degenerate level's gradients are complete on each tile rank of a stage
 under ``gather``, so they are averaged over the tiles as the tail's are.
+
+``quant`` (``quant.QuantPolicy``, None: off): the region's level
+transitions, the junction and the lineup quantize their payload forward
+(the lineup's backward stays the exact reduce-scatter), the tail's
+handoffs cross the ``handoff`` wire, and under the ``grad`` class the
+reductions become EQuARX means one mesh axis at a time, as the JAX
+engine's ``grad_pmean`` calls (``sp_pipeline.py:403-440``): the region's
+gradients over stage, sph, spw, data; its statistics over stage, data; the
+tail's gradients over sph, spw, data; its statistics over the tiles (under
+``batch_split`` only) and data.  The metrics stay exact.
 """
 
 from __future__ import annotations
@@ -56,6 +66,8 @@ from mpi4dl_tpu_torch.parallel.spatial import (
     junction_shard_index,
 )
 from mpi4dl_tpu_torch.parallel.stage_common import gems_dual, gpipe, one_f_one_b
+from mpi4dl_tpu_torch.quant import collectives as qc
+from mpi4dl_tpu_torch.quant.policy import class_mode
 from mpi4dl_tpu_torch.train import Optimizer, TrainState, data_shard, merge_stat_updates
 
 
@@ -137,23 +149,18 @@ def init_sp_pipeline_state(spp: SPPipeline, optimizer: Optimizer, stages) -> Tra
     return TrainState(spp.model, optimizer.init(params), 0, params)
 
 
-class _StageLineup(torch.autograd.Function):
-    """Every stage rank's chunk, concatenated in stage order on every rank;
-    the backward is its adjoint, the reduce-scatter of the cotangent."""
-
-    @staticmethod
-    def forward(ctx, group, x):
-        ctx.group = group
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        out = g.new_empty((g.shape[0] // dist.get_world_size(ctx.group), *g.shape[1:]))
-        dist.reduce_scatter_tensor(out, g, group=ctx.group)
-        return None, out
+def _chain_lineup(outs, mode, block):
+    """The lineup on the one-process chain: each chunk as the stage ranks
+    would receive it (the backward exact), counted as their all_gather."""
+    S = len(outs)
+    for t in _leaves(outs[0]):
+        b = S * (S - 1)
+        qc.tally("junction", b * qc.wire_nbytes(t.shape, t.dtype, mode, block),
+                 b * qc.raw_nbytes(t.shape, t.dtype))
+    outs = [_map(lambda t: qc.roundtrip(t, mode, block), o) for o in outs]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(leaf) for leaf in zip(*outs))
+    return torch.cat(outs)
 
 
 def _lineup_order(spp: SPPipeline, S: int, groups: int, folded: bool, n: int):
@@ -172,7 +179,7 @@ def _lineup_order(spp: SPPipeline, S: int, groups: int, folded: bool, n: int):
 
 def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
                   denom: int, compute_dtype, remat: bool, with_data_axis,
-                  loss_scale: float, pallas_conv: Optional[bool]):
+                  loss_scale: float, pallas_conv: Optional[bool], quant=None):
     """The steps' shared flow (``_make_sp_step``, ``sp_pipeline.py:231-470``):
     phase 1, the junction, the lineup, ``run_tail(x_groups, y_groups, ctx,
     seed) -> (loss, acc, tail grads, tail stats, grad_x groups)``, the
@@ -206,6 +213,8 @@ def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
     t = 1 if tiles.folded else tiles.tiles
     d_size = data.size if data is not None else 1
     chunks = (stages.stage,) if ranks else tuple(range(S))
+    j_mode, j_block = class_mode(quant, "junction")
+    grad_mode, block = class_mode(quant, "grad")
 
     def phase1(x):
         """The region and the junction on each of this process's chunks, the
@@ -221,16 +230,15 @@ def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
             with scope("sp_region"):
                 act, sp_last = apply_spatial_region(
                     spp.model, tiles.scatter(x[s * chunk:(s + 1) * chunk]), c, su,
-                    remat=remat, levels=spp.levels, junction=spp.junction)
-            outs.append(apply_junction(act, sp_last, spp.junction, local_dp))
+                    remat=remat, levels=spp.levels, junction=spp.junction, quant=quant)
+            outs.append(apply_junction(act, sp_last, spp.junction, local_dp, quant))
             sinks.append(c.bn_sink)
         with scope("stage_lineup"):
             if ranks:
-                line = _map(lambda v: _StageLineup.apply(stages.group, v), outs[0])
-            elif isinstance(outs[0], tuple):
-                line = tuple(torch.cat(leaf) for leaf in zip(*outs))
+                line = _map(lambda v: qc.quantized_all_gather(v, stages.group, 0, j_mode,
+                                                              j_block), outs[0])
             else:
-                line = torch.cat(outs)
+                line = _chain_lineup(outs, j_mode, j_block)
         stats = {bn: tuple(sum(sk[bn][i] for sk in sinks) / len(sinks) for i in (0, 1))
                  for bn in sinks[0]}
         return line, stats
@@ -251,6 +259,81 @@ def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
         times, two, pn = lead
         return [[[rows_of((k * two + j) * pn + p) for p in range(pn)] for j in range(two)]
                 for k in range(times)]
+
+    sp_scale = 1.0 / (d_size * (t if spp.junction == "batch_split" else 1))
+    region_scales = [(sp_scale / t if id(p) in replicated else sp_scale) / loss_scale
+                     for p in region]
+
+    def n_bytes(ts):
+        return 4 * sum(v.numel() for v in ts)
+
+    def reduce_exact(region_grads, sp_stats, tail_grads, tail_stats, metrics):
+        with scope("grad_reduce"):
+            if ranks:
+                sp_st = [v for mv in sp_stats.values() for v in mv]
+                qc.tally_all_reduce("grad", n_bytes(region_grads + sp_st),
+                                    dist.get_world_size())
+                all_reduce_scaled_(
+                    region_grads + sp_st + metrics, region_scales
+                    + [1.0 / (d_size * S * t)] * len(sp_st)
+                    + [1.0 / (d_size * t)] * 2, dist.group.WORLD)
+                tail_st = [v for mv in tail_stats.values() for v in mv]
+                tail_group = (data.with_tiles if data is not None else tiles.group)
+                qc.tally_all_reduce("grad", n_bytes(tail_grads + tail_st), d_size * t)
+                all_reduce_scaled_(tail_grads + tail_st,
+                                   [1.0 / (d_size * t * loss_scale)] * len(tail_grads)
+                                   + [1.0 / (d_size * t)] * len(tail_st), tail_group)
+            else:
+                everything = region_grads + tail_grads
+                st = [v for mv in list(sp_stats.values()) + list(tail_stats.values())
+                      for v in mv]
+                qc.tally_all_reduce("grad", n_bytes(everything + st), d_size)
+                all_reduce_scaled_(everything + st + metrics,
+                                   [1.0 / (d_size * loss_scale)] * len(everything)
+                                   + [1.0 / d_size] * (len(st) + 2),
+                                   None if data is None else data.group)
+
+    def reduce_quantized(region_grads, sp_stats, tail_grads, tail_stats, metrics):
+        """The reductions under the ``grad`` class (module docstring); the
+        metrics first, exact.  The quantized means are point-to-point
+        batches of a line of ranks, and NCCL wants every rank of a group in
+        its first collective: ``mesh.build_process_mesh`` opens each of its
+        groups (the tiles', ``data.with_tiles``) with a barrier, and the
+        metrics' all-reduce opens the world group, which the mesh opens
+        only when one axis spans it."""
+        sp_st = [v for mv in sp_stats.values() for v in mv]
+        tail_st = [v for mv in tail_stats.values() for v in mv]
+        if not ranks:  # the data axis alone
+            all_reduce_scaled_(metrics, [1.0 / d_size] * 2, data.group)
+            wire = (data.group, (d_size,), (0,), grad_mode, block)
+            with scope("grad_reduce"):
+                qc.quantized_reduce_scaled_(region_grads + tail_grads,
+                                            [1.0 / (d_size * loss_scale)]
+                                            * (len(region_grads) + len(tail_grads)), *wire)
+            with scope("stats_reduce"):
+                qc.quantized_reduce_scaled_(sp_st + tail_st, [1.0 / d_size]
+                                            * (len(sp_st) + len(tail_st)), *wire)
+            return
+        world = dist.group.WORLD
+        all_reduce_scaled_(metrics, [1.0 / (d_size * t)] * 2, world)
+        wshape = (d_size, S, tiles.dev_h, tiles.dev_w)
+        with scope("grad_reduce"):
+            qc.quantized_reduce_scaled_(region_grads, region_scales, world, wshape,
+                                        (1, 2, 3, 0), grad_mode, block)
+        tail_group = data.with_tiles if data is not None else tiles.group
+        tshape = ((d_size,) if data is not None else ()) + (tiles.dev_h, tiles.dev_w)
+        tiles_then_data = tuple(range(len(tshape)))[-2:] + tuple(range(len(tshape) - 2))
+        with scope("grad_reduce"):
+            qc.quantized_reduce_scaled_(tail_grads, [1.0 / (d_size * t * loss_scale)]
+                                        * len(tail_grads), tail_group, tshape,
+                                        tiles_then_data, grad_mode, block)
+        with scope("stats_reduce"):
+            qc.quantized_reduce_scaled_(sp_st, [1.0 / (d_size * S * t)] * len(sp_st),
+                                        world, wshape, (1, 0), grad_mode, block)
+            qc.quantized_reduce_scaled_(
+                tail_st, [1.0 / (d_size * t)] * len(tail_st), tail_group, tshape,
+                tiles_then_data if spp.junction == "batch_split"
+                else tuple(range(len(tshape) - 2)), grad_mode, block)
 
     def step(state: TrainState, x, labels):
         x, labels = data_shard(x, data), data_shard(labels, data)
@@ -282,29 +365,10 @@ def _make_sp_step(spp: SPPipeline, optimizer: Optimizer, stages, lead, run_tail,
                         for p, g in zip(region, region_grads)]
         tail_stats = {bn: (m / denom, v / denom) for bn, (m, v) in tail_stats.items()}
         metrics = [loss / denom, acc / denom]
-        with scope("grad_reduce"):
-            if ranks:
-                sp_scale = 1.0 / (d_size * (t if spp.junction == "batch_split" else 1))
-                sp_st = [v for mv in sp_stats.values() for v in mv]
-                all_reduce_scaled_(
-                    region_grads + sp_st + metrics,
-                    [(sp_scale / t if id(p) in replicated else sp_scale) / loss_scale
-                     for p in region]
-                    + [1.0 / (d_size * S * t)] * len(sp_st)
-                    + [1.0 / (d_size * t)] * 2, dist.group.WORLD)
-                tail_st = [v for mv in tail_stats.values() for v in mv]
-                tail_group = (data.with_tiles if data is not None else tiles.group)
-                all_reduce_scaled_(tail_grads + tail_st,
-                                   [1.0 / (d_size * t * loss_scale)] * len(tail_grads)
-                                   + [1.0 / (d_size * t)] * len(tail_st), tail_group)
-            else:
-                everything = region_grads + tail_grads
-                st = [v for mv in list(sp_stats.values()) + list(tail_stats.values())
-                      for v in mv]
-                all_reduce_scaled_(everything + st + metrics,
-                                   [1.0 / (d_size * loss_scale)] * len(everything)
-                                   + [1.0 / d_size] * (len(st) + 2),
-                                   None if data is None else data.group)
+        if grad_mode and (ranks or data is not None):
+            reduce_quantized(region_grads, sp_stats, tail_grads, tail_stats, metrics)
+        else:
+            reduce_exact(region_grads, sp_stats, tail_grads, tail_stats, metrics)
         with scope("optimizer_update"):
             state.opt_state = optimizer.update(params, region_grads + tail_grads,
                                                state.opt_state)
@@ -319,7 +383,7 @@ def make_sp_pipeline_train_step(spp: SPPipeline, optimizer: Optimizer, stages, p
                                 compute_dtype=torch.float32, remat: bool = True,
                                 with_data_axis=None, loss_scale: float = 1.0,
                                 schedule: str = "gpipe",
-                                pallas_conv: Optional[bool] = None):
+                                pallas_conv: Optional[bool] = None, quant=None):
     """SP x PP (``sp_pipeline.py:474-535``): ``step(state, x, labels)``, x
     the batch of one data replica, ``parts`` micro-batches of
     ``microbatch`` images; the batch must divide over the stages and, under
@@ -335,23 +399,23 @@ def make_sp_pipeline_train_step(spp: SPPipeline, optimizer: Optimizer, stages, p
         if schedule == "1f1b":
             with scope("pp_1f1b"):
                 res = one_f_one_b(part, stages, ctx, x_groups, y_groups, seed=seed,
-                                  grad_x=True)
+                                  grad_x=True, quant=quant)
         else:
             with scope("gpipe"):
                 res = gpipe(part, stages, ctx, x_groups, y_groups, seed=seed,
-                            remat=remat, grad_x=True)
+                            remat=remat, grad_x=True, quant=quant)
         grads = [g for s in stages.local_stages for g in res.grads[s]]
         return res.loss, res.accuracy, grads, res.stats, res.grad_x or [None] * parts
 
     return _make_sp_step(spp, optimizer, stages, (parts,), run_tail, parts, compute_dtype,
-                         remat, with_data_axis, loss_scale, pallas_conv)
+                         remat, with_data_axis, loss_scale, pallas_conv, quant)
 
 
 def make_sp_gems_train_step(spp: SPPipeline, optimizer: Optimizer, stages, parts: int,
                             times: int = 1, compute_dtype=torch.float32,
                             remat: bool = True, with_data_axis=None,
                             loss_scale: float = 1.0, schedule: str = "gpipe",
-                            pallas_conv: Optional[bool] = None):
+                            pallas_conv: Optional[bool] = None, quant=None):
     """SP + GEMS (``sp_pipeline.py:538-602``): as
     :func:`make_sp_pipeline_train_step`, the batch being 2·times·parts
     micro-batches laid out as (times, 2, parts) (pair ``k``'s stream A,
@@ -368,7 +432,7 @@ def make_sp_gems_train_step(spp: SPPipeline, optimizer: Optimizer, stages, parts
             mirror.pull()
         with scope("gems_1f1b_scan" if schedule == "1f1b" else "gems_dual_scan"):
             res = gems_dual(part, stages, ctx, x_groups, y_groups, seed=seed,
-                            schedule=schedule, remat=remat, grad_x=True)
+                            schedule=schedule, remat=remat, grad_x=True, quant=quant)
         grads, stats = combine_streams(res, mirror, stages.local_stages)
         gx = []
         for a, b in res.grad_x:  # per pair: stream A's then stream B's micro-batches
@@ -378,4 +442,4 @@ def make_sp_gems_train_step(spp: SPPipeline, optimizer: Optimizer, stages, parts
 
     return _make_sp_step(spp, optimizer, stages, (times, 2, parts), run_tail,
                          2 * times * parts, compute_dtype, remat, with_data_axis,
-                         loss_scale, pallas_conv)
+                         loss_scale, pallas_conv, quant)

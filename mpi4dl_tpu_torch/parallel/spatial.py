@@ -18,6 +18,12 @@ fully degenerate level (grid 1x1, e.g. the tail of a ``4,1`` chain) runs
 unsharded on the whole image, like the tail: the move into it is the
 junction's gather (``batch_split``: with the exact adjoint) and its
 gradients are reduced as the tail's are.
+
+``quant`` (a :class:`~mpi4dl_tpu_torch.quant.QuantPolicy`, None: off)
+sends the junction and the level transitions through the quantized wire
+of their classes (``junction``, ``respatial``; ``parallel/tiles.py``),
+under the same scope names; every such collective is counted in
+``quant.collectives.WIRE_BYTES`` whether quantized or not.
 """
 
 from __future__ import annotations
@@ -31,14 +37,16 @@ from mpi4dl_tpu_torch.cells import CellModel
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
 from mpi4dl_tpu_torch.obs.scopes import scope
 from mpi4dl_tpu_torch.parallel import tiles as _tiles
+from mpi4dl_tpu_torch.quant.policy import QuantPolicy, class_mode
 
 Levels = List[Tuple[int, SpatialCtx]]
 
 
-def gather_spatial(x, sp: SpatialCtx):
+def gather_spatial(x, sp: SpatialCtx, quant: Optional[QuantPolicy] = None):
     """The full (global-H/W) activation from the tiles (a tuple state
-    gathers element-wise)."""
-    return sp.tiles.gather(x)
+    gathers element-wise), through the junction class's wire."""
+    mode, block = class_mode(quant, "junction")
+    return sp.tiles.gather(x, mode, block, "junction")
 
 
 def tile_device_count(sp: SpatialCtx) -> int:
@@ -75,11 +83,12 @@ def can_all_to_all_junction(sp: SpatialCtx, degree: int) -> bool:
 
 
 def apply_junction(x, sp_last: SpatialCtx, junction: str = "gather",
-                   local_dp: Optional[int] = None):
+                   local_dp: Optional[int] = None, quant: Optional[QuantPolicy] = None):
     """The SP→LP junction: ``gather`` (the full activation everywhere) or
     ``batch_split`` (this device's batch shard, ``spatial.py:188-214``).
     After a degenerate last level the activation is already whole: the
-    gather is the identity, the batch split a slice."""
+    gather is the identity, the batch split a slice.  ``quant``: the
+    junction class's payload."""
     if not sp_last.active:
         if junction == "batch_split" and not sp_last.tiles.folded:
             degree = junction_degree(sp_last, local_dp)
@@ -95,13 +104,15 @@ def apply_junction(x, sp_last: SpatialCtx, junction: str = "gather",
             raise ValueError(f"batch {n} not divisible by junction degree {degree}")
         name = ("junction_batch_split_a2a" if can_all_to_all_junction(sp_last, degree)
                 else "junction_batch_split")
+        mode, block = class_mode(quant, "junction")
         with scope(name):
             return sp_last.tiles.batch_split(x, degree,
-                                             junction_shard_index(sp_last, degree))
+                                             junction_shard_index(sp_last, degree),
+                                             mode, block, "junction")
     if junction != "gather":
         raise ValueError(f"unknown junction {junction!r}")
     with scope("junction_gather"):
-        return gather_spatial(x, sp_last)
+        return gather_spatial(x, sp_last, quant)
 
 
 def tail_ctx(ctx: ApplyCtx, sp_last: SpatialCtx, junction: str,
@@ -117,22 +128,26 @@ def tail_ctx(ctx: ApplyCtx, sp_last: SpatialCtx, junction: str,
     return c
 
 
-def respatial(x, sp_from: SpatialCtx, sp_to: SpatialCtx, junction: str = "gather"):
+def respatial(x, sp_from: SpatialCtx, sp_to: SpatialCtx, junction: str = "gather",
+              quant: Optional[QuantPolicy] = None):
     """Move an activation from level ``sp_from``'s tiles to ``sp_to``'s
     (``spatial.py:283-333``; ``parallel/tiles.respatial``).  Into a
     degenerate level the move is the gather: with ``gather``, whose ranks
     then hold the whole loss, each keeps its own tile's cotangent; with
-    ``batch_split`` the cotangents are summed over the ranks."""
+    ``batch_split`` the cotangents are summed over the ranks.  ``quant``:
+    the respatial class's payload."""
+    mode, block = class_mode(quant, "respatial")
     if not sp_to.active:
         if junction == "batch_split" and not sp_from.tiles.folded:
-            return sp_from.tiles.gather_exact(x)
-        return sp_from.tiles.gather(x)
-    return _tiles.respatial(x, sp_from.tiles, sp_to.tiles)
+            return sp_from.tiles.gather_exact(x, mode, block, "respatial")
+        return sp_from.tiles.gather(x, mode, block, "respatial")
+    return _tiles.respatial(x, sp_from.tiles, sp_to.tiles, mode, block, "respatial")
 
 
 def apply_spatial_region(model: CellModel, x, ctx: ApplyCtx, stop: int,
                          remat=False, levels: Optional[Levels] = None,
-                         junction: str = "gather") -> Tuple[object, SpatialCtx]:
+                         junction: str = "gather",
+                         quant: Optional[QuantPolicy] = None) -> Tuple[object, SpatialCtx]:
     """Cells [0, stop) level by level (``spatial.py:335-380``), the
     activation moved by :func:`respatial` between levels; it stays in the
     last level's layout, which is returned with it.  A degenerate level
@@ -149,7 +164,7 @@ def apply_spatial_region(model: CellModel, x, ctx: ApplyCtx, stop: int,
             raise ValueError(f"empty spatial level [{start}, {lstop})")
         if prev is not None:
             with scope(f"respatial_l{li}"):
-                x = respatial(x, prev, sp_l, junction)
+                x = respatial(x, prev, sp_l, junction, quant)
         c = ctx.with_spatial(sp_l if sp_l.active else None)
         with scope(f"sp_level{li}"):
             x = model(x, c, remat=remat, start=start, stop=lstop)
@@ -225,7 +240,8 @@ def apply_spatial_model(model: CellModel, x, ctx: ApplyCtx,
                         spatial_until: Optional[int] = None,
                         junction: str = "gather", remat=False,
                         local_dp: Optional[int] = None,
-                        levels: Optional[Levels] = None):
+                        levels: Optional[Levels] = None,
+                        quant: Optional[QuantPolicy] = None):
     """Spatial region (one or more levels), junction, tail.  ``x`` is this
     process's tiles (``sp.tiles.scatter`` of the image, level 0); the
     result is the model's output for the whole batch (``gather``, and
@@ -240,7 +256,7 @@ def apply_spatial_model(model: CellModel, x, ctx: ApplyCtx,
         spatial_until = (levels[-1][0] if levels else
                          model.spatial_until or (len(model.cells) - 1))
     x, sp_last = apply_spatial_region(model, x, ctx, spatial_until, remat=remat,
-                                      levels=levels, junction=junction)
-    x = apply_junction(x, sp_last, junction, local_dp)
+                                      levels=levels, junction=junction, quant=quant)
+    x = apply_junction(x, sp_last, junction, local_dp, quant)
     return model(x, tail_ctx(ctx, sp_last, junction, local_dp), remat=remat,
                  start=spatial_until)

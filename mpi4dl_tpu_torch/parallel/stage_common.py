@@ -39,6 +39,10 @@ loss cotangent is ``seed`` (1/Pn, times the loss scale) on the last stage;
 no cotangent is all-reduced.  ``grad_x`` also returns stage 0's input
 cotangent per micro-batch, for a differentiated phase before the
 pipeline (SP x PP).
+
+``quant`` (``quant.QuantPolicy``, None: off): every stage and cotangent
+handoff crosses the ``handoff`` class's wire (``stages.exchange_streams``),
+as JAX's ``_handoff`` (``stage_common.py:35-42``) quantizes each ppermute.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx
 from mpi4dl_tpu_torch.obs.scopes import scope
 from mpi4dl_tpu_torch.parallel.partition import StagePartition
+from mpi4dl_tpu_torch.quant.policy import class_mode
 
 
 def resid_depth(num_stages: int) -> int:
@@ -176,22 +181,24 @@ class _Schedule:
 
 
 def gpipe(part: StagePartition, stages, ctx: ApplyCtx, x_parts, y_parts, *,
-          seed: float, remat: bool = True, grad_x: bool = False) -> ScheduleResult:
+          seed: float, remat: bool = True, grad_x: bool = False,
+          quant=None) -> ScheduleResult:
     """The GPipe schedule (``gpipe_scan`` and its AD transpose)."""
     sc = _Schedule(part, stages.local_stages, ctx, x_parts, y_parts, seed, grad_x)
-    _gpipe_ticks(part, stages, [sc], remat)
+    _gpipe_ticks(part, stages, [sc], remat, class_mode(quant, "handoff"))
     return sc.result()
 
 
 def one_f_one_b(part: StagePartition, stages, ctx: ApplyCtx, x_parts, y_parts, *,
-                seed: float, grad_x: bool = False) -> ScheduleResult:
+                seed: float, grad_x: bool = False, quant=None) -> ScheduleResult:
     """The 1F1B schedule (``make_1f1b_scan``)."""
     sc = _Schedule(part, stages.local_stages, ctx, x_parts, y_parts, seed, grad_x)
-    _one_f_one_b_ticks(part, stages, [sc])
+    _one_f_one_b_ticks(part, stages, [sc], class_mode(quant, "handoff"))
     return sc.result()
 
 
-def _gpipe_ticks(part: StagePartition, stages, streams, remat: bool) -> None:
+def _gpipe_ticks(part: StagePartition, stages, streams, remat: bool,
+                 wire=(None, 0)) -> None:
     """GPipe's ticks for one stream, or GEMS's two (``gems_dual_scan``):
     each stream's stage ``s`` forwards micro-batch ``t - s`` at tick ``t``,
     wherever the stream places it, and one ``stages.exchange_streams`` a
@@ -220,7 +227,8 @@ def _gpipe_ticks(part: StagePartition, stages, streams, remat: bool) -> None:
                 want = {s: sc.spec(s) for s in sc.local_stages
                         if s > 0 and sc.valid(t + 1 - s)}
                 hand.append((fwd, {}, want, {}))
-            received = [got for got, _ in stages.exchange_streams(hand)]
+            with scope("stage_handoff"):
+                received = [got for got, _ in stages.exchange_streams(hand, *wire)]
     cots = [{} for _ in streams]
     with scope("gpipe_bwd"):
         for t in reversed(range(T)):
@@ -243,10 +251,11 @@ def _gpipe_ticks(part: StagePartition, stages, streams, remat: bool) -> None:
                 want = {s: sc.spec(s + 1) for s in sc.local_stages
                         if s < last and sc.valid(t - 1 - s)}
                 hand.append(({}, bwd, {}, want))
-            cots = [got for _, got in stages.exchange_streams(hand)]
+            with scope("cot_handoff"):
+                cots = [got for _, got in stages.exchange_streams(hand, *wire)]
 
 
-def _one_f_one_b_ticks(part: StagePartition, stages, streams) -> None:
+def _one_f_one_b_ticks(part: StagePartition, stages, streams, wire=(None, 0)) -> None:
     """1F1B's ticks for one stream, or GEMS's two (``make_gems_1f1b_scan``:
     stream B's cotangents ascend the ranks while A's descend, and B's last
     stage, which forwards and backwards in one tick, sits on rank 0)."""
@@ -295,7 +304,7 @@ def _one_f_one_b_ticks(part: StagePartition, stages, streams) -> None:
                       if s < last and sc.valid(t + 1 - 2 * (S - 1) + s)}
             hand.append((fwd, bwd, want_f, want_b))
         with scope("stage_handoff"):
-            got = stages.exchange_streams(hand)
+            got = stages.exchange_streams(hand, *wire)
         received = [f for f, _ in got]
         cots = [b for _, b in got]
 
@@ -324,7 +333,7 @@ def mirror_stages(stages) -> Tuple[int, ...]:
 
 def gems_dual(part: StagePartition, stages, ctx: ApplyCtx, x_groups, y_groups, *,
               seed: float, schedule: str = "gpipe", remat: bool = True,
-              grad_x: bool = False) -> GemsResult:
+              grad_x: bool = False, quant=None) -> GemsResult:
     """The GEMS dual-stream schedule (``gems_dual_scan`` :690-801 and
     ``make_gems_1f1b_scan`` :804-1013): for each of the ``times`` pairs,
     stream A (``x_groups[k][0]``, Pn micro-batches) flows through stages 0
@@ -342,10 +351,11 @@ def gems_dual(part: StagePartition, stages, ctx: ApplyCtx, x_groups, y_groups, *
     for xp, yp in zip(x_groups, y_groups):
         a = _Schedule(part, stages.local_stages, ctx, xp[0], yp[0], seed, grad_x)
         b = _Schedule(part, mirror_stages(stages), ctx, xp[1], yp[1], seed, grad_x)
+        wire = class_mode(quant, "handoff")
         if schedule == "1f1b":
-            _one_f_one_b_ticks(part, stages, [a, b])
+            _one_f_one_b_ticks(part, stages, [a, b], wire)
         else:
-            _gpipe_ticks(part, stages, [a, b], remat)
+            _gpipe_ticks(part, stages, [a, b], remat, wire)
         res.loss = res.loss + a.loss + b.loss
         res.accuracy = res.accuracy + a.acc + b.acc
         for acc, d in ((res.grads_a, a.grads), (res.grads_b, b.grads),

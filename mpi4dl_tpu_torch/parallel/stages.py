@@ -26,6 +26,15 @@ B's gradients on their way home).
 local reference and a stage's mirror is the stage itself.  It exists so
 that one card, which holds one NCCL rank, can run the schedules; the
 runners never use it in place of missing ranks.
+
+``exchange_streams(..., mode, block)``: the handoff class of ``--quant``
+(``quant/``).  Each handoff, activation or cotangent, crosses as the
+per-block payload of its packed flat buffer (``pack``: the JAX flat
+``[act_max]`` buffer without its padding) and f32 scales, decoded on
+arrival; on :class:`StageChain` the same encode→decode is applied to the
+buffer.  Every handoff is counted in ``quant.collectives.WIRE_BYTES``
+under ``handoff``.  The mirror exchange moves parameters and is never
+quantized.
 """
 
 from __future__ import annotations
@@ -34,6 +43,29 @@ import torch
 import torch.distributed as dist
 
 from mpi4dl_tpu_torch.parallel.partition import numel, pack, unpack
+from mpi4dl_tpu_torch.quant import collectives as qc
+from mpi4dl_tpu_torch.quant.kernels import nblocks, payload_dim
+
+
+def _shape_of(act):
+    return tuple(t.shape for t in act) if isinstance(act, tuple) else act.shape
+
+
+def _tally(n: int, dtype, mode, block) -> None:
+    """One handoff of a packed buffer of ``n`` elements."""
+    qc.tally("handoff", qc.wire_nbytes((n,), dtype, mode, block), qc.raw_nbytes((n,), dtype))
+
+
+def _through_wire(act, mode, block):
+    """What the receiving stage gets of ``act`` through the handoff wire
+    (``act`` itself when exact)."""
+    leaves = act if isinstance(act, tuple) else (act,)
+    _tally(sum(t.numel() for t in leaves), leaves[0].dtype, mode, block)
+    if not mode:
+        return act
+    buf = pack(act)
+    return unpack(qc.decode(*qc.encode(buf, mode, block), mode, block, buf.numel(),
+                            buf.dtype), _shape_of(act))
 
 
 class StageChain:
@@ -44,8 +76,9 @@ class StageChain:
         self.local_stages = tuple(range(self.num_stages))
         self.group = None
 
-    def exchange_streams(self, streams):
-        return [({s: fwd[s - 1] for s in want_fwd}, {s: bwd[s + 1] for s in want_bwd})
+    def exchange_streams(self, streams, mode=None, block=0):
+        return [({s: _through_wire(fwd[s - 1], mode, block) for s in want_fwd},
+                 {s: _through_wire(bwd[s + 1], mode, block) for s in want_bwd})
                 for fwd, bwd, want_fwd, want_bwd in streams]
 
 
@@ -71,7 +104,7 @@ class ProcessGroupStages:
         """The stage this rank runs for GEMS's mirror stream."""
         return self.num_stages - 1 - self.stage
 
-    def exchange_streams(self, streams):
+    def exchange_streams(self, streams, mode=None, block=0):
         S = self.num_stages
         ops, recvs = [], []
         for direction in (0, 1):  # forward, then backward
@@ -79,21 +112,30 @@ class ProcessGroupStages:
                 s = self.stage if i == 0 else S - 1 - self.stage
                 home = (lambda t: t) if i == 0 else (lambda t: S - 1 - t)
                 sends, wants, step = (fwd, want_fwd, 1) if direction == 0 else (bwd, want_bwd, -1)
-                tag = 2 * direction + i  # gloo matches by tag; NCCL by order
+                # gloo matches by tag, NCCL by order; scales take tag + 8.
+                tag = 2 * direction + i
                 if s in sends:
-                    ops.append(dist.P2POp(dist.isend, pack(sends[s]),
-                                          self._peer(home(s + step)), self.group, tag))
+                    buf = pack(sends[s])
+                    _tally(buf.numel(), buf.dtype, mode, block)
+                    wire = [buf] if not mode else qc.encode(buf, mode, block)
+                    ops += [dist.P2POp(dist.isend, t, self._peer(home(s + step)),
+                                       self.group, tag + 8 * k) for k, t in enumerate(wire)]
                 if s in wants:
                     shape, dtype, device = wants[s]
-                    buf = torch.empty(numel(shape), dtype=dtype, device=device)
-                    ops.append(dist.P2POp(dist.irecv, buf, self._peer(home(s - step)),
-                                          self.group, tag))
-                    recvs.append((i, direction, s, buf, shape))
+                    n = numel(shape)
+                    wire = ([torch.empty(n, dtype=dtype, device=device)] if not mode else
+                            [torch.empty(payload_dim(n, mode), dtype=torch.uint8, device=device),
+                             torch.empty(nblocks(n, block), dtype=torch.float32,
+                                         device=device)])
+                    ops += [dist.P2POp(dist.irecv, t, self._peer(home(s - step)),
+                                       self.group, tag + 8 * k) for k, t in enumerate(wire)]
+                    recvs.append((i, direction, s, wire, shape, dtype))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         out = [({}, {}) for _ in streams]
-        for i, direction, s, buf, shape in recvs:
+        for i, direction, s, wire, shape, dtype in recvs:
+            buf = wire[0] if not mode else qc.decode(*wire, mode, block, numel(shape), dtype)
             out[i][direction][s] = unpack(buf, shape)
         return out
 

@@ -39,6 +39,19 @@ in the same way (``ApplyCtx.bn_shards``).  It exists so that one card,
 which holds one NCCL rank, can run the engine; the runners never use it
 in place of missing ranks.
 
+Quantized collectives (``--quant``, ``quant/``): ``gather``,
+``batch_split``, ``gather_exact`` and :func:`respatial` take the payload
+``mode`` and ``block`` of their class and the class name ``cls`` for the
+byte tally (``quant.collectives.WIRE_BYTES``; None: not counted).  On
+ranks the payload is encoded per block along C, moved and decoded, each
+rank's own share included; the gathers' backward stays exact, the
+all_to_all and the coarsening ring quantize both ways.  On
+:class:`TileGrid`, which has no wire, the same encode→decode is applied
+to each tile the ranks would move (``quant.collectives.roundtrip``), and
+the tally counts what the ranks would send; the gradient class has no
+cross-tile reduction to quantize there, the tiles being folded into the
+batch.
+
 Multi-level SP (``--num-spatial-parts 4,2``): a coarser level keeps the
 ranks of level 0, each of its tiles held by ``rep_h x rep_w`` neighbouring
 ranks (``ProcessGroupTiles(..., rep_h, rep_w)``: shifts stride by ``rep``,
@@ -59,6 +72,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from mpi4dl_tpu_torch.quant import collectives as qc
 
 AXIS_SPH = "sph"
 AXIS_SPW = "spw"
@@ -91,6 +106,8 @@ class TileGrid:
         self.grid_h, self.grid_w = int(grid_h), int(grid_w)
         self.tiles = self.grid_h * self.grid_w
         self.rep = self.count_factor = int(rep)
+        # Devices a tile spans along each axis (set by :meth:`level`).
+        self.rep_h = self.rep_w = 1
 
     def _grid_view(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(self.grid_h, self.grid_w, x.shape[0] // self.tiles,
@@ -129,8 +146,17 @@ class TileGrid:
 
         return _map_act(s, x)
 
-    def gather(self, x):
+    def _tile_shape(self, t: torch.Tensor):
+        return (t.shape[0] // self.tiles, *t.shape[1:])
+
+    def gather(self, x, mode=None, block=0, cls=None):
         def g(t):
+            # Every device sends its tile to every other one.
+            r = self.tiles * self.rep
+            shape = self._tile_shape(t)
+            qc.tally(cls, r * (r - 1) * qc.wire_nbytes(shape, t.dtype, mode, block),
+                     r * (r - 1) * qc.raw_nbytes(shape, t.dtype))
+            t = qc.roundtrip(t, mode, block)
             n = t.shape[0] // self.tiles
             h, w = t.shape[1], t.shape[2]
             t = t.reshape(self.grid_h, self.grid_w, n, h, w, *t.shape[3:])
@@ -139,11 +165,27 @@ class TileGrid:
 
         return _map_act(g, x)
 
-    def batch_split(self, x, degree: int, shard=None):
+    def batch_split(self, x, degree: int, shard=None, mode=None, block=0, cls=None):
         """The ``batch_split`` junction: the whole batch, whose ``degree``
         row blocks are the shards that the tile devices would hold (a
-        replication group's identical copies are one shard here)."""
-        return self.gather(x)
+        replication group's identical copies are one shard here).  Where
+        the ranks take the all_to_all, both directions cross the wire."""
+        if not (degree == self.tiles and self.rep == 1):
+            r = self.tiles * self.rep
+            # The backward all-reduces the full image's cotangent.
+            _map_act(lambda t: qc.tally_all_reduce(
+                cls, r * qc.raw_nbytes(t.shape, t.dtype), r), x)
+            return self.gather(x, mode, block, cls)
+
+        def a2a(t):
+            # Each device sends (T - 1) / T of its tile, each way.
+            shape = self._tile_shape(t)
+            w = (self.tiles - 1) * qc.wire_nbytes(shape, t.dtype, mode, block)
+            raw = (self.tiles - 1) * qc.raw_nbytes(shape, t.dtype)
+            qc.tally(cls, w, raw)
+            return qc.roundtrip(t, mode, block, bwd=True, bwd_tally=(cls, w, raw))
+
+        return self.gather(_map_act(a2a, x))
 
     def level(self, grid_h: int, grid_w: int) -> "TileGrid":
         """A coarser level's grid: each of its tiles once (see the module
@@ -151,8 +193,11 @@ class TileGrid:
         if self.grid_h % grid_h or self.grid_w % grid_w:
             raise ValueError(f"a {grid_h}x{grid_w} level does not embed in the "
                              f"{self.grid_h}x{self.grid_w} grid")
-        return TileGrid(grid_h, grid_w,
-                        self.rep * (self.grid_h // grid_h) * (self.grid_w // grid_w))
+        g = TileGrid(grid_h, grid_w,
+                     self.rep * (self.grid_h // grid_h) * (self.grid_w // grid_w))
+        g.rep_h = self.rep_h * (self.grid_h // grid_h)
+        g.rep_w = self.rep_w * (self.grid_w // grid_w)
+        return g
 
 
 # ---------------------------------------------------------------------------
@@ -199,31 +244,14 @@ class _GatherTiles(torch.autograd.Function):
     ``spatial.py:67-85``); the others get zeros."""
 
     @staticmethod
-    def forward(ctx, tiles, x):
+    def forward(ctx, tiles, x, mode, block, cls):
         ctx.tiles = tiles
-        return tiles._assemble(x)
+        return tiles._assemble(x, mode, block, cls)
 
     @staticmethod
     def backward(ctx, g):
         own = ctx.tiles._own(g).contiguous()
-        return None, own if ctx.tiles.primary else torch.zeros_like(own)
-
-
-class _AllToAllJunction(torch.autograd.Function):
-    """Tiles to batch shards in one all_to_all (``batch_split_all_to_all``,
-    degree = tile count): rank ``r`` sends its tile of batch shard ``j`` to
-    rank ``j`` and assembles shard ``r`` of the full image from the tiles it
-    receives.  The backward is the reverse all_to_all: with one shard a
-    rank the tail is no longer replicated, so nothing is counted twice."""
-
-    @staticmethod
-    def forward(ctx, tiles, x):
-        ctx.tiles = tiles
-        return tiles._tiles_to_shard(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return None, ctx.tiles._shard_to_tiles(g)
+        return None, own if ctx.tiles.primary else torch.zeros_like(own), None, None, None
 
 
 class _GatherSlice(torch.autograd.Function):
@@ -233,9 +261,9 @@ class _GatherSlice(torch.autograd.Function):
     summed over the ranks, and this rank's tile of it."""
 
     @staticmethod
-    def forward(ctx, tiles, k, degree, x):
-        ctx.tiles, ctx.k, ctx.degree = tiles, k, degree
-        full = tiles._assemble(x)
+    def forward(ctx, tiles, k, degree, x, mode, block, cls):
+        ctx.tiles, ctx.k, ctx.degree, ctx.cls = tiles, k, degree, cls
+        full = tiles._assemble(x, mode, block, cls)
         n = full.shape[0] // degree
         return full[k * n:(k + 1) * n].contiguous()
 
@@ -244,9 +272,11 @@ class _GatherSlice(torch.autograd.Function):
         n = g.shape[0]
         full = g.new_zeros((n * ctx.degree, *g.shape[1:]))
         full[ctx.k * n:(ctx.k + 1) * n] = g
+        qc.tally_all_reduce(ctx.cls, qc.raw_nbytes(full.shape, full.dtype), ctx.tiles.tiles)
         dist.all_reduce(full, op=dist.ReduceOp.SUM, group=ctx.tiles.group)
         own = ctx.tiles._own(full).contiguous()
-        return None, None, None, own if ctx.tiles.primary else torch.zeros_like(own)
+        return (None, None, None, own if ctx.tiles.primary else torch.zeros_like(own),
+                None, None, None)
 
 
 class ProcessGroupTiles:
@@ -339,15 +369,10 @@ class ProcessGroupTiles:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t / self.tiles
 
-    def _all_parts(self, x: torch.Tensor):
-        parts = [torch.empty_like(x) for _ in range(self.tiles)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return parts
-
-    def _assemble(self, x: torch.Tensor) -> torch.Tensor:
+    def _assemble(self, x: torch.Tensor, mode=None, block=0, cls=None) -> torch.Tensor:
         """Every tile, all-gathered into the full image (one copy of each
-        replicated tile)."""
-        parts = self._all_parts(x)
+        replicated tile: the dedup happens after the wire)."""
+        parts = qc.all_gather_parts(x, self.group, mode, block, cls)
         rows = [torch.cat([parts[ah * self.dev_w + aw]
                            for aw in range(0, self.dev_w, self.rep_w)], dim=2)
                 for ah in range(0, self.dev_h, self.rep_h)]
@@ -360,45 +385,39 @@ class ProcessGroupTiles:
     def scatter(self, x):
         return _map_act(lambda t: self._own(t).contiguous(), x)
 
-    def gather(self, x):
-        return _map_act(lambda t: _GatherTiles.apply(self, t), x)
+    def gather(self, x, mode=None, block=0, cls=None):
+        return _map_act(lambda t: _GatherTiles.apply(self, t, mode, block, cls), x)
 
-    def _tiles_to_shard(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's tile ``[N, h, w, ...]`` → its batch shard of the full
-        image ``[N / T, H, W, ...]`` (shard r on rank r)."""
+    def _tiles_to_shard(self, t: torch.Tensor, mode=None, block=0, cls=None) -> torch.Tensor:
+        """Tiles to batch shards in one all_to_all (``batch_split_all_to_all``,
+        degree = tile count): this rank's tile ``[N, h, w, ...]`` → its batch
+        shard of the full image ``[N / T, H, W, ...]`` (shard r on rank r),
+        rank ``r`` sending its tile of shard ``j`` to rank ``j``.  The
+        backward is the reverse all_to_all: with one shard a rank the tail
+        is no longer replicated, so nothing is counted twice."""
         n = t.shape[0] // self.tiles
-        send = t.contiguous()
-        recv = torch.empty_like(send)  # [T * n, h, w, ...]: tile r of my shard
-        dist.all_to_all_single(recv, send, group=self.group)
+        # [T * n, h, w, ...]: tile r of my shard
+        recv = qc.quantized_all_to_all(t, self.group, 0, 0, mode, block, cls)
         parts = recv.reshape(self.grid_h, self.grid_w, n, *t.shape[1:])
         h, w = t.shape[1], t.shape[2]
         parts = parts.permute(2, 0, 3, 1, 4, *range(5, parts.dim()))
         return parts.reshape(n, self.grid_h * h, self.grid_w * w, *t.shape[3:])
 
-    def _shard_to_tiles(self, g: torch.Tensor) -> torch.Tensor:
-        """The inverse of :meth:`_tiles_to_shard`."""
-        n = g.shape[0]
-        h, w = g.shape[1] // self.grid_h, g.shape[2] // self.grid_w
-        parts = g.reshape(n, self.grid_h, h, self.grid_w, w, *g.shape[3:])
-        send = parts.permute(1, 3, 0, 2, 4, *range(5, parts.dim())).contiguous()
-        recv = torch.empty_like(send).reshape(self.tiles * n, h, w, *g.shape[3:])
-        dist.all_to_all_single(recv, send.reshape(recv.shape), group=self.group)
-        return recv
-
-    def batch_split(self, x, degree: int, shard: int):
+    def batch_split(self, x, degree: int, shard: int, mode=None, block=0, cls=None):
         """The ``batch_split`` junction: batch shard ``shard`` of ``degree``
         of the full image (this rank's); one all_to_all when every rank
         takes its own shard of an unreplicated level, else gather and
         slice."""
         if degree == self.tiles and self.rep_h == self.rep_w == 1:
-            return _map_act(lambda t: _AllToAllJunction.apply(self, t), x)
-        return _map_act(lambda t: _GatherSlice.apply(self, shard, degree, t), x)
+            return _map_act(lambda t: self._tiles_to_shard(t, mode, block, cls), x)
+        return _map_act(lambda t: _GatherSlice.apply(self, shard, degree, t, mode, block,
+                                                     cls), x)
 
-    def gather_exact(self, x):
+    def gather_exact(self, x, mode=None, block=0, cls=None):
         """The full image with the exact adjoint (the cotangents summed over
         the ranks): a transition into a degenerate level whose ranks each
         see a part of the loss (the ``batch_split`` tail)."""
-        return _map_act(lambda t: _GatherSlice.apply(self, 0, 1, t), x)
+        return _map_act(lambda t: _GatherSlice.apply(self, 0, 1, t, mode, block, cls), x)
 
 
 # ---------------------------------------------------------------------------
@@ -448,16 +467,19 @@ class _CoarsenRing(torch.autograd.Function):
     each, every rank placing what it receives at the sender's position
     (``_respatial_coarsen_ring``, ``spatial.py:240-280``).  The backward is
     the exact adjoint: each received piece's cotangent goes back to its
-    sender, and a tile's gradient is the sum of its ``k`` copies'."""
+    sender, and a tile's gradient is the sum of its ``k`` copies'.  Under
+    ``mode`` every piece that travels, either way, is encoded once and
+    decoded on arrival; the rank's own piece stays exact."""
 
     @staticmethod
-    def forward(ctx, tiles, dim, k, x):
+    def forward(ctx, tiles, dim, k, x, mode, block, cls):
         d = dim - 1
         a = _axis_pos(tiles, d)
         base, pos0 = (a // k) * k, a % k
         peers = [(_axis_rank(tiles, d, base + (pos0 + h) % k),
                   _axis_rank(tiles, d, base + (pos0 - h) % k)) for h in range(1, k)]
         ctx.tiles, ctx.dim, ctx.k, ctx.pos0, ctx.peers = tiles, dim, k, pos0, peers
+        ctx.wire = (mode, block, cls)
         x = x.contiguous()
         L = x.shape[dim]
         shape = list(x.shape)
@@ -465,28 +487,20 @@ class _CoarsenRing(torch.autograd.Function):
         out = x.new_zeros(shape)
         out.narrow(dim, pos0 * L, L).copy_(x)
         for h, (to, frm) in enumerate(peers, start=1):
-            recv = torch.empty_like(x)
-            for req in dist.batch_isend_irecv([
-                    dist.P2POp(dist.isend, x, to, tiles.group),
-                    dist.P2POp(dist.irecv, recv, frm, tiles.group)]):
-                req.wait()
+            recv = qc.send_recv(x, to, frm, x, tiles.group, mode, block, cls)
             out.narrow(dim, ((pos0 - h) % k) * L, L).copy_(recv)
         return out
 
     @staticmethod
     def backward(ctx, g):
         dim, k, pos0 = ctx.dim, ctx.k, ctx.pos0
+        mode, block, cls = ctx.wire
         L = g.shape[dim] // k
         dx = g.narrow(dim, pos0 * L, L).contiguous().clone()
         for h, (to, frm) in enumerate(ctx.peers, start=1):
             piece = g.narrow(dim, ((pos0 - h) % k) * L, L).contiguous()
-            recv = torch.empty_like(piece)
-            for req in dist.batch_isend_irecv([
-                    dist.P2POp(dist.isend, piece, frm, ctx.tiles.group),
-                    dist.P2POp(dist.irecv, recv, to, ctx.tiles.group)]):
-                req.wait()
-            dx += recv
-        return None, None, None, dx
+            dx += qc.send_recv(piece, frm, to, piece, ctx.tiles.group, mode, block, cls)
+        return None, None, None, dx, None, None, None
 
 
 class _GatherAxis(torch.autograd.Function):
@@ -499,24 +513,33 @@ class _GatherAxis(torch.autograd.Function):
     overlaps.  The backward is the exact adjoint, a reduce-scatter over the
     line: every rank sends each kept copy the part of its cotangent that
     falls in that copy's tile, the kept copy sums them in line order, and
-    the other copies get zeros."""
+    the other copies get zeros.  Under ``mode`` the pieces travel encoded
+    and the kept copy's own piece is decoded from its own encode too (the
+    gather of the quantized payload); the backward stays exact."""
 
     @staticmethod
-    def forward(ctx, src, dim, g_to, r_to, x):
+    def forward(ctx, src, dim, g_to, r_to, x, mode, block, cls):
         x = x.contiguous()
         plan = _LinePlan(src, dim - 1, g_to, r_to, x.shape[dim])
-        ctx.plan, ctx.dim, ctx.shape = plan, dim, x.shape
+        ctx.plan, ctx.dim, ctx.shape, ctx.cls = plan, dim, x.shape, cls
+        wire = [x] if not mode else list(qc.encode(x, mode, block))
         pieces, ops = {}, []
         if plan.kept:
-            for b in plan.readers(plan.own):
-                ops.append(plan.op(dist.isend, x, b))
+            readers = plan.readers(plan.own)
+            qc.tally(cls, len(readers) * qc.wire_nbytes(x.shape, x.dtype, mode, block),
+                     len(readers) * qc.raw_nbytes(x.shape, x.dtype))
+            for b in readers:
+                ops += [plan.op(dist.isend, t, b, i) for i, t in enumerate(wire)]
         for j in plan.overlapped(plan.a):
             if j == plan.own and plan.kept:
-                pieces[j] = x
+                pieces[j] = wire
             else:
-                pieces[j] = torch.empty_like(x)
-                ops.append(plan.op(dist.irecv, pieces[j], j * plan.rep))
+                pieces[j] = [torch.empty_like(t) for t in wire]
+                ops += [plan.op(dist.irecv, t, j * plan.rep, i)
+                        for i, t in enumerate(pieces[j])]
         _wait_all(ops)
+        pieces = {j: p[0] if not mode else qc.decode(*p, mode, block, x.shape[-1], x.dtype)
+                  for j, p in pieces.items()}
         js = sorted(pieces)
         full = torch.cat([pieces[j] for j in js], dim=dim)
         return full.narrow(dim, plan.start(plan.a) - js[0] * plan.L, plan.local).contiguous()
@@ -536,6 +559,8 @@ class _GatherAxis(torch.autograd.Function):
             if j == plan.own and plan.kept:
                 mine = blk
             else:
+                b = qc.raw_nbytes(blk.shape, blk.dtype)
+                qc.tally(ctx.cls, b, b)
                 ops.append(plan.op(dist.isend, blk, j * plan.rep))
         parts = {}
         if plan.kept:
@@ -547,11 +572,11 @@ class _GatherAxis(torch.autograd.Function):
                     ops.append(plan.op(dist.irecv, parts[b], b))
         _wait_all(ops)
         if not plan.kept:
-            return None, None, None, None, g.new_zeros(ctx.shape)
+            return None, None, None, None, g.new_zeros(ctx.shape), None, None, None
         dx = None
         for b in sorted(parts):
             dx = parts[b] if dx is None else dx + parts[b]
-        return None, None, None, None, dx
+        return None, None, None, None, dx, None, None, None
 
 
 class _LinePlan:
@@ -588,9 +613,9 @@ class _LinePlan:
         return [b for b in range(len(self.line))
                 if self._overlaps(b, j) and (with_self or b != self.a)]
 
-    def op(self, fn, t: torch.Tensor, b: int):
+    def op(self, fn, t: torch.Tensor, b: int, tag: int = 0):
         return dist.P2POp(fn, t, dist.get_global_rank(self.src.group, self.line[b]),
-                          self.src.group)
+                          self.src.group, tag)
 
 
 def _wait_all(ops) -> None:
@@ -607,7 +632,72 @@ def _line_ranks(t: ProcessGroupTiles, d: int):
     return [t.ah * t.dev_w + aw for aw in range(t.dev_w)]
 
 
-def respatial(x, src, dst):
+def _path(fast: bool, g_from: int, r_from: int, g_to: int) -> str:
+    """The way one dim moves between levels: ``same``, ``refine`` (a local
+    slice), ``ring`` (coarsening from an unreplicated level) or
+    ``gather``."""
+    if g_from == g_to:
+        return "same"
+    if fast and g_to > g_from and g_to % g_from == 0:
+        return "refine"
+    if fast and g_to > 1 and r_from == 1 and g_from % g_to == 0:
+        return "ring"
+    return "gather"
+
+
+def _gather_sends(g_from: int, r_from: int, g_to: int, r_to: int) -> int:
+    """Pieces that :class:`_GatherAxis` sends along one line of ranks (each
+    kept copy to every other position whose target tile overlaps it)."""
+    dev, local = g_from * r_from, g_from / g_to
+    n = 0
+    for j in range(g_from):
+        for b in range(dev):
+            s = (b // r_to) * local
+            if j < s + local and s < j + 1 and b != j * r_from:
+                n += 1
+    return n
+
+
+def _grid_respatial_wire(t, src, dst, mode, block, cls):
+    """:func:`respatial`'s wire on :class:`TileGrid`, dim by dim as the
+    ranks move it: a ring's received pieces are encoded both ways — the
+    grid holds a replicated target tile once, as the copy the gather keeps
+    sees it (its own piece exact, the others' decoded) —, the gather
+    path's pieces forward only, a refinement moves nothing."""
+    fast = respatial_fast_enabled()
+    gh, gw = src.grid_h, src.grid_w
+    n = t.shape[0] // src.tiles
+    shape = (n, *t.shape[1:])
+    for d in (0, 1):
+        g_from, r_from = (src.grid_h, src.rep_h) if d == 0 else (src.grid_w, src.rep_w)
+        g_to, r_to = (dst.grid_h, dst.rep_h) if d == 0 else (dst.grid_w, dst.rep_w)
+        path = _path(fast, g_from, r_from, g_to)
+        if path in ("same", "refine"):
+            continue
+        lines = (gw * src.rep_w) if d == 0 else (gh * src.rep_h)
+        if path == "ring":
+            k = g_from // g_to
+            # The rows of the tiles whose position along d is not the
+            # first of their ring group.
+            idx = torch.arange(g_from, device=t.device) % k != 0
+            mask = (idx.view(g_from, 1) if d == 0 else idx.view(1, g_from)).expand(gh, gw)
+            mask = mask.reshape(-1).repeat_interleave(n).view(-1, *([1] * (t.dim() - 1)))
+            sends = lines * g_from * r_from * (k - 1)
+            w = sends * qc.wire_nbytes(shape, t.dtype, mode, block)
+            raw = sends * qc.raw_nbytes(shape, t.dtype)
+            qc.tally(cls, w, raw)
+            t = qc.roundtrip(t, mode, block, mask=mask, bwd=True, bwd_tally=(cls, w, raw))
+        else:
+            sends = lines * _gather_sends(g_from, r_from, g_to, r_to)
+            qc.tally(cls, sends * qc.wire_nbytes(shape, t.dtype, mode, block),
+                     sends * qc.raw_nbytes(shape, t.dtype))
+            # The backward's reduce-scatter sends the same pieces, exact.
+            b = sends * qc.raw_nbytes(shape, t.dtype)
+            t = qc.roundtrip(t, mode, block, bwd_tally=(cls, b, b))
+    return t
+
+
+def respatial(x, src, dst, mode=None, block=0, cls=None):
     """Move an activation from level ``src``'s tile layout to level
     ``dst``'s (``respatial``, ``spatial.py:283-333``), dim by dim (H, then
     W): a refinement is a local slice, a coarsening from an unreplicated
@@ -615,8 +705,11 @@ def respatial(x, src, dst):
     full extent and slices the target tile (``MPI4DL_NO_RESPATIAL_FAST=1``:
     always).  Every path is an ``autograd.Function`` with its exact
     adjoint.  On :class:`TileGrid` the move is a regrouping of the folded
-    batch: the source level's full image cut into the target's tiles."""
+    batch: the source level's full image cut into the target's tiles,
+    after :func:`_grid_respatial_wire`.  ``mode``/``block``/``cls``: the
+    respatial class's wire (module docstring)."""
     if src.folded:
+        x = _map_act(lambda t: _grid_respatial_wire(t, src, dst, mode, block, cls), x)
         full = src.gather(x)
         return full if (dst.grid_h, dst.grid_w) == (1, 1) else dst.scatter(full)
     if src.tiles != dst.tiles:
@@ -628,19 +721,20 @@ def respatial(x, src, dst):
         returns the tensor and its new layout."""
         g_from, r_from = (cur.grid_h, cur.rep_h) if d == 0 else (cur.grid_w, cur.rep_w)
         g_to, r_to = (dst.grid_h, dst.rep_h) if d == 0 else (dst.grid_w, dst.rep_w)
-        if g_from == g_to:
+        path = _path(fast, g_from, r_from, g_to)
+        if path == "same":
             return t, cur
         dim = d + 1
         nxt = (ProcessGroupTiles(g_to, cur.grid_w, cur.group, r_to, cur.rep_w) if d == 0
                else ProcessGroupTiles(cur.grid_h, g_to, cur.group, cur.rep_h, r_to))
-        if fast and g_to > g_from and g_to % g_from == 0:
+        if path == "refine":
             k = g_to // g_from
             a = _axis_pos(cur, d)
             off = a // r_to - (a // r_from) * k
             return _RefineSlice.apply(t, dim, off, t.shape[dim] // k), nxt
-        if fast and g_to > 1 and r_from == 1 and g_from % g_to == 0:
-            return _CoarsenRing.apply(cur, dim, g_from // g_to, t), nxt
-        return _GatherAxis.apply(cur, dim, g_to, r_to, t), nxt
+        if path == "ring":
+            return _CoarsenRing.apply(cur, dim, g_from // g_to, t, mode, block, cls), nxt
+        return _GatherAxis.apply(cur, dim, g_to, r_to, t, mode, block, cls), nxt
 
     def move(t):
         t, cur = dim_pass(t, src, 0)

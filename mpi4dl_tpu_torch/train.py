@@ -25,9 +25,12 @@ from mpi4dl_tpu_torch.cells import CellModel
 from mpi4dl_tpu_torch.distributed import all_reduce_scaled_
 from mpi4dl_tpu_torch.layer_ctx import ApplyCtx, SpatialCtx
 from mpi4dl_tpu_torch.layers import BatchNorm
+from mpi4dl_tpu_torch.obs.scopes import scope
 from mpi4dl_tpu_torch.parallel.spatial import (
     active_region_cells, apply_spatial_model, junction_degree, junction_shard_index,
 )
+from mpi4dl_tpu_torch.quant import collectives as qc
+from mpi4dl_tpu_torch.quant.policy import QuantPolicy, class_mode
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -173,18 +176,31 @@ def data_shard(t: torch.Tensor, data) -> torch.Tensor:
     return t if data is None else t.chunk(data.size)[data.index]
 
 
-def _reducer(group, grad_scales, scale: float):
+def _reducer(group, grad_scales, scale: float, grad_wire=None):
     """``reduce(grads, stats, metrics)`` for :func:`_accumulating_step`:
     one all-reduce over ``group`` of everything, gradient ``i`` scaled by
-    ``grad_scales[i]`` and the statistics and metrics by ``scale``."""
+    ``grad_scales[i]`` and the statistics and metrics by ``scale``.
+    ``grad_wire`` ``(shape, axes, mode, block)``: the gradients go through
+    the quantized mean over the mesh axes ``axes`` of ``group`` (its ranks
+    row-major over ``shape``, ``quant.collectives.quantized_reduce_scaled_``)
+    and the statistics and metrics through the exact all-reduce."""
 
     def reduce(grads, stats, metrics):
         for k in metrics:
             metrics[k] = torch.as_tensor(metrics[k], dtype=torch.float32,
                                          device=grads[0].device).clone()
         rest = [t for mv in stats.values() for t in mv] + list(metrics.values())
-        all_reduce_scaled_(list(grads) + rest, list(grad_scales) + [scale] * len(rest),
-                           group)
+        if grad_wire is None:
+            qc.tally_all_reduce("grad", sum(g.numel() for g in grads)
+                                * (8 if grads[0].dtype == torch.float64 else 4),
+                                dist.get_world_size(group))
+            all_reduce_scaled_(list(grads) + rest, list(grad_scales) + [scale] * len(rest),
+                               group)
+            return
+        shape, axes, mode, block = grad_wire
+        all_reduce_scaled_(rest, [scale] * len(rest), group)
+        with scope("grad_reduce"):
+            qc.quantized_reduce_scaled_(grads, grad_scales, group, shape, axes, mode, block)
 
     return reduce
 
@@ -264,13 +280,24 @@ def _sp_group(sp: SpatialCtx, data):
     return data.group if data is not None else None
 
 
+def _sp_mesh(sp: SpatialCtx, data):
+    """The mesh axes of :func:`_sp_group` as ``quantized_pmean`` reads them:
+    its ranks row-major over ``(data, sph, spw)`` (the sizes of those
+    present), all of them reduced in that order (JAX's ``grad_axes``)."""
+    shape = [] if data is None else [data.size]
+    if not sp.tiles.folded:
+        shape += [sp.tiles.dev_h, sp.tiles.dev_w]
+    return tuple(shape), tuple(range(len(shape)))
+
+
 def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
                             sp: SpatialCtx, parts: int = 1,
                             compute_dtype=torch.float32,
                             spatial_until: Optional[int] = None,
                             junction: str = "gather", remat=False,
                             local_dp: Optional[int] = None,
-                            with_data_axis=None, levels=None):
+                            with_data_axis=None, levels=None,
+                            quant: Optional[QuantPolicy] = None):
     """Spatial-parallel (SP [+DP]) training step (``train.py:335-488``):
     ``step(state, x, labels)`` takes the global batch of images,
     keeps this replica's slice under ``with_data_axis``, cuts this
@@ -306,7 +333,14 @@ def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
     The running statistics and the metrics are averaged over the same
     ranks, all in one all-reduce.  On the one-process grid the tiles need
     no reduction.  ``sp.use_pallas_conv`` routes the region's stride-1
-    convs and K2 windows through the kernels."""
+    convs and K2 windows through the kernels.
+
+    ``quant`` (``quant.QuantPolicy``, None: off): the junction and the level
+    transitions quantize their payload (``parallel/spatial.py``) and, under
+    the ``grad`` class, the gradients are averaged through the EQuARX mean
+    one mesh axis at a time, data then sph then spw (``train.py:452-458``);
+    the statistics and metrics stay exact.  On the one-process grid the
+    tiles have no reduction to quantize, only the data axis."""
     if sp is None or not sp.active or sp.tiles is None:
         raise ValueError("make_spatial_train_step needs an active SpatialCtx with tiles")
     if levels is not None and levels[0][1] is not sp:
@@ -323,7 +357,7 @@ def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
         c = dataclasses.replace(ctx, bn_sink={})
         logits = apply_spatial_model(model, sp.tiles.scatter(x.to(compute_dtype)), c,
                                      su, junction, remat=remat, local_dp=local_dp,
-                                     levels=levels)
+                                     levels=levels, quant=quant)
         if isinstance(logits, tuple):
             logits = logits[0]
         labels = _shard_labels(labels, sp_last, junction, local_dp)
@@ -340,7 +374,9 @@ def make_spatial_train_step(model: CellModel, optimizer: Optimizer,
                       for p in cell.parameters()}
         region_scale = 1.0 / (d * (t if junction == "batch_split" else 1))
         scales = [region_scale if id(p) in region_ids else 1.0 / (d * t) for p in params]
-        reduce = _reducer(group, scales, 1.0 / (d * t))
+        grad_mode, block = class_mode(quant, "grad")
+        reduce = _reducer(group, scales, 1.0 / (d * t),
+                          (*_sp_mesh(sp, data), grad_mode, block) if grad_mode else None)
     step = _accumulating_step(optimizer, params, grads_for, parts, reduce)
     if data is None:
         return step

@@ -119,7 +119,7 @@ def test_main_runs_on_cpu_when_asked(capsys):
 
 
 # Items ported since the flags were first refused: their flags now parse.
-PORTED = {"A5", "A6", "A7", "A8", "A10", "A11"}
+PORTED = {"A5", "A6", "A7", "A8", "A10", "A11", "A13"}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -139,9 +139,10 @@ PORTED = {"A5", "A6", "A7", "A8", "A10", "A11"}
 ])
 def test_unported_flags_raise(flags, item):
     """A flag of an engine not ported yet raises and names its ROADMAP
-    item; the flags of the ported engines (A5-A8, A10 and A11: spatial
+    item; the flags of the ported engines (A5-A8, A10, A11 and A13: spatial
     parallelism, the data axis, the pipelines, GEMS, data loading and
-    checkpoints, multi-level SP and the stripe-wise backward) parse."""
+    checkpoints, multi-level SP, the stripe-wise backward and the quantized
+    collectives) parse."""
     if item in PORTED:
         cfg = config_from_args(get_parser().parse_args(flags))
         assert cfg.enable_gems == ("--enable-gems" in flags)
@@ -154,6 +155,7 @@ def test_unported_flags_raise(flags, item):
         assert cfg.local_dp_lp == (2 if "--local-DP" in flags else 1)
         assert cfg.app == (1 if "--app" in flags else 3)
         assert cfg.checkpoint_dir == ("ckpt" if "--checkpoint-dir" in flags else None)
+        assert cfg.quant_collectives == ("int8" if "--quant" in flags else "off")
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         config_from_args(get_parser().parse_args(flags))
