@@ -223,7 +223,26 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    the grid's ranks would send) are printed for both, and beside them the
    exact run on an input moved by 2^-8 (its loss gap and first-gradient
    gap: how far the exact step itself moves).
-24. The kernels' JSON line, the card line, and last the result line.  K1's
+24. Run telemetry (``obs/``): the ``lp`` runner at phase 20's model and
+   flags (synthetic data) with ``--telemetry-dir``, 6 steps, twice.  Each
+   run's ``cost`` record (its warm-up step counted under
+   ``obs.costs.counting``) holds exactly the FLOPs of the same step on the
+   meta device through the plain versions (``count_dispatches``, counted in
+   a worker beside phases 1-3); its K1 and K2 tallies are phase 2's FLOPs
+   of the same 80 + 80 calls; ``peak_source`` "table" at 989e12 FLOP/s;
+   0 < MFU <= 1; the ``.prom`` snapshot exists.  Printed: FLOPs, bytes,
+   arithmetic intensity and MFU a step with the card line, and the counted
+   warm-up's ms beside phase 22's uncounted one.  Then the port's CLI in
+   this process: ``report`` renders the cost model and MFU lines of both
+   RunLogs, ``report --compare`` names every compared metric, ``report
+   --trend`` finds one series of two runs, ``metrics`` over the directory
+   gives each run's step count and step-ms sum, and ``trace --runlog``
+   writes 6 step spans (and 7 spans with ``anomaly`` and ``recovery``
+   instants for phase 22's ``nan_batch@5`` RunLog).  K3 (off this path):
+   one forward and one backward launch at (8, 4096, 128) bf16 causal
+   under ``counting``, each tallied once and equal to its plain version's
+   count of the same call.
+25. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -231,10 +250,10 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
    GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-19 run between phases 3 and 4, phases 20-23 after phase 6, each
+Phases 7-19 run between phases 3 and 4, phases 20-24 after phase 6, each
 printing its seconds.  The
-dry runs (meta device, CPU only) run in three worker processes from the
-start, beside phases 1-3.
+dry runs (meta device, CPU only; phase 24's count too) run in worker
+processes from the start, beside phases 1-3.
 """
 
 from __future__ import annotations
@@ -2335,6 +2354,8 @@ def phase_resilience(whole_losses):
         runs["nan_batch"] = c["launches"]
         _runs_main_path(c, len(c["losses"]) + c["anomalies"])
         recs = read_runlog(c["telemetry_path"])
+        with open(c["telemetry_path"]) as f:
+            nan_runlog = f.read()
         anomalies = [r for r in recs if r["kind"] == "anomaly"]
         recoveries = [r for r in recs if r["kind"] == "recovery"]
         print(f"resilience: nan_batch@5: anomalies {anomalies}, recoveries {recoveries}, "
@@ -2361,7 +2382,7 @@ def phase_resilience(whole_losses):
         print(f"resilience: watchdog: {dumps} dump(s) at step 2; {mem}", flush=True)
         assert dumps == 1 and text.count("watchdog:") == 1 and len(mem) == 1, text[-3000:]
         assert d["final_step"] == 4 and all(math.isfinite(v) for v in d["losses"])
-        return runs
+        return runs, {"nan_runlog": nan_runlog, "warmup_ms": d["step_ms"][0]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2522,6 +2543,183 @@ def phase_quant(preds):
              preds["amoebanet_1024_sp_pp_grid"], QUANT_SPPP, SPPP_BATCH)
 
 
+# The telemetry phase: the lp runner at phase 20's model with
+# --telemetry-dir, its cost record against the meta-device count, and the
+# port's obs CLI on its RunLogs.
+TELEMETRY_STEPS = 6  # 1 warm-up (the counted step) and 5 measured
+
+
+def runner_parts(dev):
+    """``(None, step, state)`` of the ``lp`` runner at ``DATA_FLAGS`` on
+    ``dev``, built as the runner builds it."""
+    from mpi4dl_tpu_torch.benchmarks.common import _build
+    from mpi4dl_tpu_torch.config import config_from_args, get_parser
+
+    cfg = config_from_args(get_parser().parse_known_args(DATA_FLAGS)[0])
+    step, state, _, _ = _build(cfg, "lp", dev, None, print)
+    return None, step, state
+
+
+def runner_dry_cost():
+    """The dry run of the ``lp`` runner's step at ``DATA_FLAGS``, counted
+    through the plain versions (``obs.costs.counting``: ``.flops`` and
+    ``.bytes``, the aten ops' bytes, of the step; the build is not
+    counted)."""
+    import torch
+
+    from mpi4dl_tpu_torch.obs.costs import counting
+
+    flag = DATA_FLAGS.index
+    image = int(DATA_FLAGS[flag("--image-size") + 1])
+    built = runner_parts(torch.device("meta"))
+    with counting() as cost:
+        seen = dry_run(lambda dev: built,
+                       (int(DATA_FLAGS[flag("--batch-size") + 1]), image, image, 3))
+    assert cost["error"] is None, cost["error"]
+    seen.flops, seen.bytes = cost["flops"], cost["bytes_accessed"]
+    return seen
+
+
+def _obs_cli(argv):
+    """``python -m mpi4dl_tpu_torch.obs <argv>`` in this process: (exit
+    code, standard output)."""
+    import contextlib
+    import io
+
+    from mpi4dl_tpu_torch.obs.__main__ import main as obs_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return rc, buf.getvalue()
+
+
+def phase_telemetry(tot, pred, resilience_info):
+    """Run telemetry (module docstring, phase 24)."""
+    import tempfile
+
+    import torch
+
+    from mpi4dl_tpu_torch.obs import read_runlog
+    from mpi4dl_tpu_torch.obs.costs import mfu
+    from mpi4dl_tpu_torch.obs.report import _COMPARE_METRICS
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+
+    card = card_line()
+    work = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        tele = os.path.join(work, "tele")
+        flags = DATA_FLAGS + ["--steps-per-epoch", str(TELEMETRY_STEPS), "--telemetry-dir", tele]
+        paths = []
+        for run in range(2):
+            reset_all_counts()
+            out, _ = runner(flags)
+            _runs_main_path(out, TELEMETRY_STEPS)
+            assert len(out["losses"]) == TELEMETRY_STEPS
+            assert all(math.isfinite(v) for v in out["losses"]), out["losses"]
+            path = out["telemetry_path"]
+            paths.append(path)
+            recs = read_runlog(path)
+            assert not [r for r in recs if r["kind"] == "cost_error"], recs
+            cost = next(r for r in recs if r["kind"] == "cost")
+            ms = sorted(r["ms"] for r in recs if r["kind"] == "step" and r["measured"])
+            assert len(ms) == TELEMETRY_STEPS - 1, ms
+            util = mfu(cost["flops"], statistics.median(ms), cost["peak_flops"])
+            k1 = cost["kernels"]["halo_conv2d"]
+            k2 = cost["kernels"]["halo_conv2d_stats"]
+            print(f"telemetry: run {run}: flops/step {cost['flops']} bytes/step "
+                  f"{cost['bytes_accessed']} arithmetic intensity "
+                  f"{cost['arithmetic_intensity']:.3f} FLOP/byte, median step "
+                  f"{statistics.median(ms):.1f} ms, MFU {util:.6f} (peak "
+                  f"{cost['peak_flops']:.4g} FLOP/s, {cost['peak_source']}); K1 "
+                  f"{k1['launches']} launches {k1['flops']} FLOP {k1['bytes']} B, K2 "
+                  f"{k2['launches']} launches {k2['flops']} FLOP {k2['bytes']} B "
+                  f"(+{k2['vector_flops']} elementwise); counted warm-up "
+                  f"{out['step_ms'][0]:.1f} ms against an uncounted one "
+                  f"{resilience_info['warmup_ms']:.1f} ms (phase 22); {card}", flush=True)
+            # The card's count is the meta device's count of the same step
+            # through the plain versions, exactly; the kernels' tallies are
+            # phase 2's reckoning of the same 80 + 80 calls.
+            assert cost["flops"] == pred.flops, (cost["flops"], pred.flops)
+            assert k1["launches"] == k2["launches"] == 80, cost["kernels"]
+            assert k1["flops"] == tot["K1"]["flops"], (k1, tot["K1"]["flops"])
+            assert k2["flops"] == tot["K2"]["flops"], (k2, tot["K2"]["flops"])
+            assert sum(hc.flops(c[2], c[3]) for c in pred.calls
+                       if c[0] == "halo_conv2d") == k1["flops"]
+            assert cost["peak_source"] == "table" and cost["peak_flops"] == 989e12, cost
+            assert cost["device_count"] == 1 and cost["tick_scopes"] == [], cost
+            assert util is not None and 0 < util <= 1, util
+            assert os.path.exists(os.path.splitext(path)[0] + ".prom"), path
+        print(f"telemetry: meta-device count of the same step through the plain "
+              f"versions: {pred.flops} FLOP, {pred.bytes} B (aten ops only)",
+              flush=True)
+
+        rc, text = _obs_cli(["report"] + paths)
+        assert rc == 0 and text.count("cost model: flops/step") == 2, text
+        assert text.count("mfu estimate: 0.") == 2, text
+        rc, text = _obs_cli(["report", "--compare"] + paths)
+        assert rc in (0, 1) and all(name in text for name, _, _ in _COMPARE_METRICS), text
+        rc, text = _obs_cli(["report", "--trend", tele])
+        assert rc in (0, 1) and "series lp-amoebanet: 2 run(s)" in text, text
+        rc, text = _obs_cli(["metrics", tele])
+        assert rc == 0 and text.endswith("# EOF\n"), text
+        for path in paths:
+            job = os.path.splitext(os.path.basename(path))[0]
+            ms = [r["ms"] for r in read_runlog(path) if r["kind"] == "step" and r["measured"]]
+            want = {f'mpi4dl_steps_total{{job="{job}"}}': len(ms),
+                    f'mpi4dl_step_latency_ms_count{{job="{job}"}}': len(ms),
+                    f'mpi4dl_step_latency_ms_sum{{job="{job}"}}': sum(ms)}
+            got = dict(line.rsplit(" ", 1) for line in text.splitlines()
+                       if not line.startswith("#"))
+            for key, value in want.items():
+                assert math.isclose(float(got[key]), value, rel_tol=1e-12), (key, got)
+        # K3 is off this path; its tallies at the slice's head shape (T 4096),
+        # against the plain versions' count of the same calls.
+        from mpi4dl_tpu_torch.obs.costs import counting, step_cost
+        from mpi4dl_tpu_torch.ops import flash_attention as fa
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(12)
+        q, k, v = (torch.randn((8, 4096, 128), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        do = torch.randn((8, 4096, 128), generator=gen, device="cuda")
+        for name, fn, plain, args in (
+                ("block_flash", fa.block_flash, fa.block_flash_plain,
+                 (q, k, v, 0, 0, True, 128 ** -0.5)),
+                ("block_flash_bwd", fa.block_flash_bwd, fa.block_flash_bwd_plain,
+                 (q, k, v, fa.block_flash_plain(q, k, v, 0, 0, True)[1], do,
+                  torch.zeros((8, 4096), device="cuda"), 0, 0, True, 128 ** -0.5))):
+            with counting() as got:
+                fn(*args)
+            want = step_cost(plain, *args)["flops"]
+            print(f"telemetry: {name} at (8, 4096, 128) bf16 causal: tally "
+                  f"{got['kernels'][name]}, the step's {got['flops']} FLOP, the plain "
+                  f"version's {want}", flush=True)
+            assert got["kernels"][name]["launches"] == 1
+            assert got["kernels"][name]["flops"] == got["flops"] == want, (got, want)
+        del q, k, v, do
+
+        nan_path = os.path.join(work, "nan_batch.jsonl")
+        with open(nan_path, "w") as f:
+            f.write(resilience_info["nan_runlog"])
+        for path, spans in ((paths[0], TELEMETRY_STEPS), (nan_path, 7)):
+            trace = os.path.join(work, "trace.json")
+            rc, _ = _obs_cli(["trace", "--runlog", path, "--out", trace])
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            steps = [e for e in events if e["ph"] == "X" and e.get("cat") == "step"]
+            instants = sorted(e["name"].split()[0] for e in events if e["ph"] == "i")
+            print(f"telemetry: trace of {os.path.basename(path)}: {len(events)} events, "
+                  f"{len(steps)} step spans, instants {instants}", flush=True)
+            assert rc == 0 and len(steps) == spans, (rc, len(steps))
+            if path == nan_path:
+                assert instants == ["anomaly", "recovery"], instants
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -2563,6 +2761,7 @@ def main() -> int:
         t0 = time.perf_counter()
         dry = [pool.submit(all_dry_runs), pool.submit(engine_dry_runs),
                pool.submit(ml_dry_runs)]
+        cost_dry = pool.submit(runner_dry_cost)
         secs = _build.build_kernels(verbose=True)
         card = card_line()
         print(f"build: {secs:.1f} s on {card}", flush=True)
@@ -2571,6 +2770,7 @@ def main() -> int:
         tot = phase_kernels()
         launches = phase_slice()
         preds = {k: v for d in dry for k, v in d.result().items()}
+        cost_pred = cost_dry.result()
         print(f"dry runs: ready {time.perf_counter() - t0:.1f} s after the start",
               flush=True)
     finally:
@@ -2603,8 +2803,9 @@ def main() -> int:
     k3_launches = timed(phase_seq_slice)
     data_launches, whole_losses = timed(phase_data_checkpoint)
     timed(phase_halo_tools)
-    resilience_launches = timed(phase_resilience, whole_losses)
+    resilience_launches, resilience_info = timed(phase_resilience, whole_losses)
     timed(phase_quant, preds)
+    timed(phase_telemetry, tot, cost_pred, resilience_info)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"

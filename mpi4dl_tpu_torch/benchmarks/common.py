@@ -19,7 +19,13 @@ thread), moved to the device inside the timed step.  With
 JAX runner's fingerprints and goes on from its step; the loop saves once
 before the first step when the directory holds none, at every epoch
 boundary and on preemption (a preempted run returns normally: exit 0).
-``--telemetry-dir`` writes rank 0's RunLog (``obs/runlog.py``).  The ranks
+``--telemetry-dir`` writes rank 0's RunLog (``obs/runlog.py``): beside the
+JAX runner's records its ``cost`` record, counted on the warm-up step (the
+loop's first call of the step, run under ``obs.costs.counting``: FLOPs,
+bytes, arithmetic intensity, the card's peak, ``tick_scopes``, and on
+ranks ``flops_by_rank``, gathered to rank 0, and ``flops`` their mean), and
+at the end the ``<runlog>.prom`` OpenMetrics snapshot beside it (render
+both with ``python -m mpi4dl_tpu_torch.obs``).  The ranks
 of a job take every decision together over a gloo group (the loop's
 "Ranks").  It prints one line per step, each save's wait and time to disk,
 and the ``StepMeter`` summary (the first step is the warm-up); the last
@@ -53,8 +59,7 @@ rank's sends over the whole run, ``quant.collectives.WIRE_BYTES``).
 
 Run in one process with more than one rank in the mesh, it raises: the
 one-process tile grid and stage chain are reached only by calling the
-engines directly.  The RunLog's ``cost`` record and the ``.prom`` metrics
-snapshot are not ported (ROADMAP A15).
+engines directly.
 """
 
 from __future__ import annotations
@@ -77,7 +82,9 @@ from mpi4dl_tpu_torch.device import resolve_device
 from mpi4dl_tpu_torch.layer_ctx import spatial_levels_for
 from mpi4dl_tpu_torch.mesh import MeshSpec, build_process_mesh, initialize_distributed
 from mpi4dl_tpu_torch.models import build_model
-from mpi4dl_tpu_torch.obs.runlog import RunLog
+from mpi4dl_tpu_torch.obs.costs import arithmetic_intensity, counting, peak_flops
+from mpi4dl_tpu_torch.obs.metrics import write_metrics_file
+from mpi4dl_tpu_torch.obs.runlog import RunLog, read_runlog, run_device_count
 from mpi4dl_tpu_torch.ops import halo_conv
 from mpi4dl_tpu_torch.parallel.spatial import cell_output_shapes, choose_spatial_until
 from mpi4dl_tpu_torch.quant import QuantPolicy
@@ -290,9 +297,12 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
                    help="profile one more step; per-rank device-time tables "
                         "go to this directory")
     p.add_argument("--telemetry-dir", default=None,
-                   help="write a RunLog JSONL (meta, step, checkpoint, anomaly, "
-                        "recovery, preempt, quarantine and summary records) "
-                        "under this directory (rank 0)")
+                   help="write a RunLog JSONL (meta, the warm-up step's cost "
+                        "record: FLOPs, bytes, peak for the MFU; step, "
+                        "checkpoint, anomaly, recovery, preempt, quarantine "
+                        "and summary records) and its .prom metrics snapshot "
+                        "under this directory (rank 0); render with `python "
+                        "-m mpi4dl_tpu_torch.obs report`")
     p.add_argument("--watchdog-secs", type=float, default=None,
                    help="step wall-clock budget: a step (batch fetch + device "
                         "step) exceeding it dumps live Python stacks, the last "
@@ -374,13 +384,21 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
                 torch.cuda.synchronize(dev)
 
         # The loop times step_fn from the batch in hand (the JAX runner's): the
-        # host-to-device copy, the step and the wait for the card.
-        last = {}
+        # host-to-device copy, the step and the wait for the card.  With
+        # --telemetry-dir its first call, the warm-up, is counted.
+        last, uncounted = {}, [bool(args.telemetry_dir)]
 
         def step_fn(st, xb, yb):
             x = torch.from_numpy(np.asarray(xb)).to(dev)
             y = torch.from_numpy(np.asarray(yb)).to(dev, torch.int64)
             last.update(x=x, y=y)
+            if uncounted[0]:
+                uncounted[0] = False
+                with counting() as cost:
+                    st, m = step(st, x, y)
+                sync()
+                write_cost(runlog, cost, dev, group)
+                return st, m
             st, m = step(st, x, y)
             sync()
             return st, m
@@ -425,9 +443,15 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
         if runlog is not None:
             runlog.write("summary", **meter.stats())
             runlog.close()
-            say(f"telemetry written to {runlog.path}; its `cost` record and the "
-                "`.prom` metrics snapshot are not ported yet (obs/costs, "
-                "obs/metrics: ROADMAP A15)", flush=True)
+            say(f"telemetry written to {runlog.path} (render: python -m "
+                f"mpi4dl_tpu_torch.obs report {runlog.path})", flush=True)
+            try:
+                prom = os.path.splitext(runlog.path)[0] + ".prom"
+                write_metrics_file(read_runlog(runlog.path), prom)
+                say(f"metrics snapshot written to {prom}", flush=True)
+            except Exception as e:  # noqa: BLE001 — telemetry must never kill a run
+                print(f"note: metrics snapshot unavailable ({e!r})", file=sys.stderr,
+                      flush=True)
         if group is not None:
             dist.destroy_process_group(group)
     state = result.state
@@ -470,6 +494,56 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
         out.update(tail_agreement(tail, mesh.tiles.group))
     say(json.dumps(out), flush=True)
     return out
+
+
+# The schedule scopes the report's `pipeline:` line names (the JAX runner's
+# tick_scopes, benchmarks/common.py:364-369).
+TICK_SCOPES = ("gpipe_scan", "pp_1f1b_scan", "gems_dual_scan", "gems_1f1b_scan",
+               "tail_scan", "fwd_tick", "bwd_tick")
+
+
+def write_cost(runlog, cost, dev, group) -> None:
+    """The counted step's ``cost`` record (counterpart of the JAX runner's,
+    ``benchmarks/common.py:339-395``): ``flops``, ``bytes_accessed``,
+    ``arithmetic_intensity``, ``tick_scopes``, ``peak_flops`` and
+    ``peak_source`` (this card's, or the nominal CPU peak), ``device_count``
+    (the run's), and ``kernels`` (the hand kernels' launches and work).
+    On ranks every rank takes part: each counts its own step, the counts
+    are gathered over ``group`` to rank 0, and the record holds
+    ``flops_by_rank`` and ``flops`` = their mean (one card's share, so the
+    report's MFU divides by one card's peak).  The JAX record's
+    ``collectives`` waits for the port's compiled-program statistics.
+    Only ``runlog``'s holder writes; an error (in the counting, on any rank,
+    or here) becomes a ``cost_error`` record and a printed note instead:
+    telemetry must never kill a run, nor hide a failure."""
+    try:
+        flops, nbytes, err, extra = cost["flops"], cost["bytes_accessed"], cost["error"], {}
+        if group is not None:
+            mine = torch.tensor([flops, nbytes, err is not None], dtype=torch.int64)
+            rows = [torch.zeros_like(mine) for _ in range(dist.get_world_size(group))]
+            dist.all_gather(rows, mine, group=group)
+            by_rank = [int(r[0]) for r in rows]
+            flops = sum(by_rank) / len(rows)
+            nbytes = sum(int(r[1]) for r in rows) / len(rows)
+            failed = [i for i, r in enumerate(rows) if r[2]]
+            if failed and err is None:
+                err = f"counting failed on rank(s) {failed}"
+            extra["flops_by_rank"] = by_rank
+        if err is not None:
+            raise RuntimeError(f"the step's counting failed: {err}")
+        if runlog is None:
+            return
+        peak, src = peak_flops(dev, allow_cpu_nominal=True)
+        runlog.write("cost", flops=flops, bytes_accessed=nbytes,
+                     arithmetic_intensity=arithmetic_intensity(flops, nbytes),
+                     tick_scopes=[s for s in cost["scopes"] if s in TICK_SCOPES],
+                     peak_flops=peak, peak_source=src, device_count=run_device_count(),
+                     kernels=cost["kernels"], **extra)
+    except Exception as e:  # noqa: BLE001 — telemetry must never kill a run
+        if runlog is not None:
+            runlog.write("cost_error", error=repr(e))
+        print(f"note: telemetry cost record unavailable ({e!r})", file=sys.stderr,
+              flush=True)
 
 
 def tail_agreement(tail, group) -> dict:

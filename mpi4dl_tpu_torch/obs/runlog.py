@@ -84,6 +84,15 @@ def device_memory_watermarks(devices=None) -> Optional[Dict[str, Any]]:
     }
 
 
+def run_device_count() -> int:
+    """The devices a run uses: the process group's world size when one is
+    up (one device a rank), else 1 (a one-process run holds one device,
+    however many the machine has)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def host_rss_peak_bytes() -> Optional[int]:
     """Process peak RSS — the memory watermark that exists on every host."""
     try:
@@ -146,7 +155,9 @@ class RunLog:
         """The run's self-description record (always the file's first
         line): the torch version, the backend and the card's name where the
         JAX package records its jax version and devices.  ``device``: this
-        process's device (default: the current card when CUDA is in use)."""
+        process's device (default: the current card when CUDA is in use).
+        ``device_count`` is the run's: the process group's world size when
+        one is up (one device a rank), else 1."""
         import torch
 
         if device is None and _cuda_in_use():
@@ -161,7 +172,7 @@ class RunLog:
             torch_version=torch.__version__,
             cuda_version=torch.version.cuda,
             backend=dev.type,
-            device_count=torch.cuda.device_count() if cuda else 1,
+            device_count=run_device_count(),
             device_kind=torch.cuda.get_device_name(dev) if cuda else "cpu",
             platform="gpu" if cuda else "cpu",
             hatches=active_hatches(),

@@ -56,6 +56,12 @@ BWD_TILE = 512   # key tile of the backward: the tk that flash_attention_local
 # nowhere else (CPU tensors never launch).  One backward call counts once
 # (it splits dô and runs the dK/dV and dQ passes).
 LAUNCHES = {"block_flash": 0, "block_flash_bwd": 0}
+# The launches again with their work, added beside each count
+# (obs/costs.py reads it: a ctypes launch dispatches no aten op, so
+# FlopCounterMode cannot see it); never reset, so that a reset of LAUNCHES
+# loses no counted work.  FLOPs as the plain versions' matmuls count them,
+# the whole Tq x Tk block even where a causal mask hides part of it.
+TALLY = {k: {"launches": 0, "flops": 0, "bytes": 0} for k in LAUNCHES}
 
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TC = 2   # the launcher's code for bf16 q, k and v (tensor cores)
@@ -69,6 +75,33 @@ State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def flops(bh: int, t_q: int, t_k: int, d: int, backward: bool = False) -> int:
+    """FLOPs of one call as ``FlopCounterMode`` counts its plain version:
+    2 matmuls of 2·BH·Tq·Tk·D forward (scores, P·V), 5 backward (scores,
+    dP, dV, dK, dQ)."""
+    return (10 if backward else 4) * bh * t_q * t_k * d
+
+
+def nbytes(bh: int, t_q: int, t_k: int, d: int, q_itemsize: int, kv_itemsize: int,
+           backward: bool = False) -> int:
+    """Bytes one launch moves, each input read once and each output written
+    once.  Forward: q, k, v in; fp32 o_hat, m, l out.  Backward: q, k, v,
+    fp32 dô, m, dl in; fp32 dq, dk, dv out."""
+    qkv = bh * t_q * d * q_itemsize + 2 * bh * t_k * d * kv_itemsize
+    if backward:
+        return qkv + bh * t_q * (d + 2) * 4 + (bh * t_q * d + 2 * bh * t_k * d) * 4
+    return qkv + bh * t_q * (d + 2) * 4
+
+
+def _tally(name: str, q, k, backward: bool = False) -> None:
+    bh, t_q, d = q.shape
+    LAUNCHES[name] += 1
+    TALLY[name]["launches"] += 1
+    TALLY[name]["flops"] += flops(bh, t_q, k.shape[1], d, backward)
+    TALLY[name]["bytes"] += nbytes(bh, t_q, k.shape[1], d, q.element_size(),
+                                   k.element_size(), backward)
 
 
 def _causal_mask(t_q: int, t_k: int, q_off: int, k_off: int, device) -> torch.Tensor:
@@ -162,7 +195,7 @@ def _launch(q, k, v, q_off, k_off, causal, scale) -> State:
             int(causal), int(q_off), int(k_off), float(scale), stream,
         )
     _raise_on(lib, err, "block_flash")
-    LAUNCHES["block_flash"] += 1
+    _tally("block_flash", qk, k)
     return o, m, l
 
 
@@ -249,7 +282,7 @@ def _launch_bwd(q, k, v, m, do, dl, q_off, k_off, causal, scale) -> Grads:
             int(q_off), int(k_off), float(scale), stream,
         )
     _raise_on(lib, err, "block_flash backward")
-    LAUNCHES["block_flash_bwd"] += 1
+    _tally("block_flash_bwd", q, k, backward=True)
     return dq, dk, dv
 
 

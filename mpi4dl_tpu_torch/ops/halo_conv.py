@@ -41,7 +41,9 @@ every stride-1 conv fits (no counterpart of the TPU VMEM caps in
 Beside the kernel, :func:`halo_conv2d_plain` computes the same function in
 plain PyTorch.  The wrapper takes it only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises.  :data:`LAUNCHES` counts the launches of
-each kernel.
+each kernel; :data:`TALLY` adds up their work where they launch
+(:func:`flops`, :func:`vector_flops`, :func:`nbytes`), for ``obs/costs.py``:
+a ctypes launch dispatches no aten op, so ``FlopCounterMode`` cannot see it.
 
 :func:`halo_conv2d_t` and :func:`fused_relu_conv_bn_t` are the trainable
 forms (``torch.autograd.Function``), whose backward follows
@@ -63,6 +65,10 @@ import torch.nn.functional as F
 # Launches of each kernel, counted by the wrapper where it launches and
 # nowhere else (CPU tensors never launch).
 LAUNCHES = {"halo_conv2d": 0, "halo_conv2d_stats": 0}
+# The launches again with their work, added beside each count: conv FLOPs,
+# the elementwise FLOPs beside the conv, bytes moved (obs/costs.py reads
+# them).  Never reset, so that a reset of LAUNCHES loses no counted work.
+TALLY = {k: {"launches": 0, "flops": 0, "vector_flops": 0, "bytes": 0} for k in LAUNCHES}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
@@ -72,6 +78,38 @@ _I = ctypes.c_int
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def flops(x_shape, w_shape) -> int:
+    """FLOPs of one call's conv, 2 a multiply-add: 2·N·Ho·Wo·kh·kw·Cin·Cout,
+    what ``FlopCounterMode`` counts for the plain version's ``F.conv2d``
+    (the fused ReLU and the statistics are :func:`vector_flops`)."""
+    n, hp, wp, cin = x_shape
+    kh, kw, _, cout = w_shape
+    return 2 * n * (hp - kh + 1) * (wp - kw + 1) * kh * kw * cin * cout
+
+
+def vector_flops(x_shape, w_shape, fuse_relu: bool = False, stat_window=None) -> int:
+    """The elementwise FLOPs beside the conv, which ``FlopCounterMode``
+    counts for no op: the fused ReLU, one an input element, and K2's
+    statistics, three (add, multiply, add) an output element of the window."""
+    n, hp, wp, cin = x_shape
+    cout = w_shape[3]
+    out = n * hp * wp * cin if fuse_relu else 0
+    if stat_window is not None:
+        h0, h1, w0, w1 = stat_window
+        out += 3 * n * (h1 - h0) * (w1 - w0) * cout
+    return out
+
+
+def nbytes(x_shape, w_shape, itemsize: int, out_itemsize: int, stat_rows: int = 0) -> int:
+    """Bytes one launch moves: x and w read once, y written once, and K2's
+    fp32 partial sums and sums of squares (``stat_rows`` rows of Cout)."""
+    n, hp, wp, cin = x_shape
+    kh, kw, _, cout = w_shape
+    y = n * (hp - kh + 1) * (wp - kw + 1) * cout
+    return ((n * hp * wp * cin + kh * kw * cin * cout) * itemsize + y * out_itemsize
+            + 2 * stat_rows * cout * 4)
 
 
 def pad_hw(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -168,6 +206,17 @@ def stat_rows(x: torch.Tensor, w: torch.Tensor) -> int:
         n, hp, wp, kh, kw, cout, int(x.dtype == torch.bfloat16), _sms(x.device))
 
 
+def _tally(x, w, y, fuse_relu, stat_window, rows: int) -> None:
+    """Count one launch and add its work to :data:`TALLY`."""
+    name = "halo_conv2d" if stat_window is None else "halo_conv2d_stats"
+    LAUNCHES[name] += 1
+    t = TALLY[name]
+    t["launches"] += 1
+    t["flops"] += flops(x.shape, w.shape)
+    t["vector_flops"] += vector_flops(x.shape, w.shape, fuse_relu, stat_window)
+    t["bytes"] += nbytes(x.shape, w.shape, x.element_size(), y.element_size(), rows)
+
+
 def _launch(x, w, out_dtype, fuse_relu, stat_window):
     _check(x, w, out_dtype)
     n, hp, wp, cin = x.shape
@@ -196,10 +245,9 @@ def _launch(x, w, out_dtype, fuse_relu, stat_window):
             "halo_conv2d kernel launch failed: "
             + lib.halo_conv2d_error_string(err).decode()
         )
+    _tally(x, w, y, fuse_relu, stat_window, rows)
     if part is None:
-        LAUNCHES["halo_conv2d"] += 1
         return y
-    LAUNCHES["halo_conv2d_stats"] += 1
     s, ss = part.sum(dim=1)
     return y, s, ss
 
