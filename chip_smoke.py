@@ -242,7 +242,26 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    one forward and one backward launch at (8, 4096, 128) bf16 causal
    under ``counting``, each tallied once and equal to its plain version's
    count of the same call.
-25. The kernels' JSON line, the card line, and last the result line.  K1's
+25. The memory probe and the elastic supervisor (``benchmarks/mem_probe.py``,
+   ``resilience/{planner,supervisor}.py``), at phase 20's model and flags,
+   ``--steps-per-epoch 2 --num-epochs 2``.  (a) The probe's estimate of the
+   ``lp`` runner's step (fake tensors on the CPU, no CUDA context; run as a
+   subprocess beside phases 1-3) within 15% of the same step's
+   ``torch.cuda.max_memory_allocated`` on the card (the unsupervised runner
+   in a process of its own).
+   (b) ``python -m mpi4dl_tpu_torch.resilience supervise`` as a
+   subprocess, its legs processes of their own, beside that run: a clean
+   job is one leg with no incident, its losses bitwise the unsupervised
+   run's and 80 + 80 K1/K2 launches a step; with ``MPI4DL_FAULT=io_error@2``
+   one ``transient_io`` incident answered by a backoff ``retry`` with no
+   config delta, the relaunch restoring step 2 and ending on the
+   unsupervised run's final loss, bit for bit.  (c) At 4096², where the
+   probe puts the step above the card's memory: the leg dies in its first
+   step with the card's own ``CUDA out of memory``, the supervisor
+   classifies it ``oom_compile`` from the crash marker, the policy is
+   ``degrade``, the ladder has no rung for ``lp`` at one stage and one
+   part, so it fails with exit 1 and the typed reason, after one leg.
+26. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -250,15 +269,16 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
    GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-19 run between phases 3 and 4, phases 20-24 after phase 6, each
+Phases 7-19 run between phases 3 and 4, phases 20-25 after phase 6, each
 printing its seconds.  The
-dry runs (meta device, CPU only; phase 24's count too) run in worker
-processes from the start, beside phases 1-3.
+dry runs (meta device, CPU only; phase 24's count too) and phase 25's
+probes run in worker processes from the start, beside phases 1-3.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import json
 import math
@@ -2720,6 +2740,162 @@ def phase_telemetry(tot, pred, resilience_info):
         torch.cuda.empty_cache()
 
 
+# The supervisor slice: phase 20's model and flags, 2 epochs of 2 steps.
+SUP_FLAGS = DATA_FLAGS[:-2] + ["--steps-per-epoch", "2", "--num-epochs", "2"]
+SUP_OOM_IMAGE = 4096  # ~16x the 1024^2 step's activations: above the card
+PROBE_TOLERANCE = 0.15  # the probe's estimate against the card's peak
+
+
+def probe_start(image: int):
+    """Phase 25's memory probe of the ``lp`` runner's step at phase 20's
+    flags and ``image``² (``benchmarks.mem_probe``: fake tensors, on the
+    CPU, no CUDA context), started as a subprocess beside phases 1-3;
+    ``(process, JSON path)``."""
+    import tempfile
+
+    flags = list(DATA_FLAGS[:-2])
+    flags[flags.index("--image-size") + 1] = str(image)
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_probe_", suffix=".json")
+    os.close(fd)
+    cmd = [sys.executable, "-m", "mpi4dl_tpu_torch.benchmarks.mem_probe", "--family", "lp",
+           "--schedule", "gpipe", "--out", path, *flags]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path
+
+
+def probe_result(started) -> dict:
+    """The probe's gpipe row (``peak_bytes``, per role) and its seconds."""
+    proc, path = started
+    _, err = proc.communicate()
+    assert proc.returncode == 0, err[-2000:]
+    with open(path) as f:
+        data = json.load(f)
+    os.unlink(path)
+    row = data["schedules"]["gpipe"]
+    row["probe_s"] = data["probe_s"]
+    return row
+
+
+def _control_run(flags):
+    """The unsupervised ``lp`` runner in a process of its own: its summary
+    (the last line)."""
+    proc = subprocess.run([sys.executable, "-m",
+                           "mpi4dl_tpu_torch.benchmarks.layer_parallelism.benchmark_amoebanet_lp",
+                           *flags], capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _supervise(out_dir, flags, env=None, budget_gb=None):
+    """``python -m mpi4dl_tpu_torch.resilience supervise`` (the ``lp``
+    family) as a subprocess: (exit code, its ``supervisor`` incident
+    records, its summary record, the last leg's result, seconds)."""
+    from mpi4dl_tpu_torch.obs import read_runlog
+
+    cmd = [sys.executable, "-m", "mpi4dl_tpu_torch.resilience", "supervise", "--family", "lp",
+           "--model", "amoebanet", "--out", out_dir]
+    if budget_gb is not None:
+        cmd += ["--budget-gb", str(budget_gb)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd + ["--", *flags], capture_output=True, text=True,
+                          env={**os.environ, **(env or {})},
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    log = next(f for f in sorted(os.listdir(out_dir)) if f.endswith(".jsonl"))
+    recs = read_runlog(os.path.join(out_dir, log))
+    legs = os.path.join(out_dir, "legs")
+    attempts = sorted(os.listdir(legs))
+    final = None
+    path = os.path.join(legs, attempts[-1], "leg_result.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            final = json.load(f)
+    return (proc.returncode, [r for r in recs if r["kind"] == "supervisor"],
+            next(r for r in recs if r["kind"] == "supervisor_summary"), final, secs,
+            attempts, proc)
+
+
+def phase_supervisor(probes):
+    """The memory probe and the elastic supervisor (module docstring,
+    phase 25)."""
+    import tempfile
+
+    import torch
+
+    from mpi4dl_tpu_torch.resilience import POLICIES
+
+    card = card_line()
+    torch.cuda.empty_cache()  # the legs below are processes of their own
+    work = tempfile.mkdtemp(prefix="chip_smoke_supervisor_")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            control_f = ex.submit(_control_run, SUP_FLAGS)
+            clean_f = ex.submit(_supervise, os.path.join(work, "clean"), SUP_FLAGS)
+            io_f = ex.submit(_supervise, os.path.join(work, "io"), SUP_FLAGS,
+                             {"MPI4DL_FAULT": "io_error@2"})
+            control, clean, io = control_f.result(), clean_f.result(), io_f.result()
+        # (a) the probe against the card's peak of the same step.
+        probe = probe_result(probes[0])
+        peak = control["peak_bytes"]
+        gap = (probe["peak_bytes"] - peak) / peak
+        print(f"supervisor (a): probe {probe['peak_bytes']} B ({probe['peak_bytes'] / 2**30:.3f} "
+              f"GiB, {probe['probe_s']:.1f} s on the CPU) against the card's "
+              f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB): {100 * gap:+.2f}% "
+              f"on {card}", flush=True)
+        assert abs(gap) <= PROBE_TOLERANCE, gap
+        # (b) supervised legs at full width against the unsupervised run.
+        total = 4
+        rc, incidents, summary, final, secs, attempts, proc = clean
+        assert rc == 0 and not incidents and summary["ok"], proc.stderr[-3000:]
+        assert summary["attempts"] == 1 and attempts == ["attempt1"], attempts
+        assert final["losses"] == control["losses"], (final["losses"], control["losses"])
+        assert final["launches"] == {"halo_conv2d": 80 * total,
+                                     "halo_conv2d_stats": 80 * total}, final["launches"]
+        print(f"supervisor (b) clean: 1 leg, 0 incidents in {secs:.1f} s; losses "
+              f"{final['losses']} bitwise the unsupervised run's; 80 + 80 K1/K2 a step; "
+              f"peak {final['peak_bytes']} B", flush=True)
+        rc, incidents, summary, final, secs, attempts, proc = io
+        assert rc == 0 and summary["ok"] and summary["attempts"] == 2, proc.stderr[-3000:]
+        assert len(incidents) == 1, incidents
+        inc = incidents[0]
+        assert (inc["failure_class"], inc["policy"]) == ("transient_io", "retry"), inc
+        assert inc["backoff_s"] > 0 and "config_delta" not in inc, inc
+        assert summary["final_env"] == {}, summary
+        assert final["start_step"] == 2 and final["loss"] == control["loss"], (final, control)
+        assert final["launches"] == {"halo_conv2d": 160, "halo_conv2d_stats": 160}
+        print(f"supervisor (b) io_error@2: {inc['failure_class']} -> {inc['policy']} "
+              f"(backoff {inc['backoff_s']} s, {inc['evidence']['source']}), no config "
+              f"delta, resumed at step {final['start_step']}; final loss {final['loss']} "
+              f"bitwise the unsupervised run's; {secs:.1f} s", flush=True)
+        # (c) one real allocator OOM: typed, no rung, no relaunch.
+        probe_c = probe_result(probes[1])
+        total_mem = torch.cuda.get_device_properties(0).total_memory
+        assert probe_c["peak_bytes"] > total_mem, (probe_c, total_mem)
+        flags = list(SUP_FLAGS)
+        flags[flags.index("--image-size") + 1] = str(SUP_OOM_IMAGE)
+        rc, incidents, summary, final, secs, attempts, proc = _supervise(
+            os.path.join(work, "oom"), flags, budget_gb=total_mem / 2**30)
+        assert rc == 1 and not summary["ok"] and attempts == ["attempt1"], proc.stderr[-3000:]
+        assert len(incidents) == 1, incidents
+        inc = incidents[0]
+        ev = inc["evidence"]
+        assert (inc["failure_class"], inc["policy"]) == ("oom_compile", "fail"), inc
+        assert POLICIES["oom_compile"].action == "degrade"
+        assert ev["source"] == "marker:oom_pattern" and ev["marker_phase"] == "compile", ev
+        assert "CUDA out of memory" in ev["marker_error"], ev
+        assert "ladder exhausted" in summary["reason"], summary
+        print(f"supervisor (c) {SUP_OOM_IMAGE}^2: probe {probe_c['peak_bytes'] / 2**30:.1f} GiB "
+              f"> the card's {total_mem / 2**30:.2f} GiB; the leg died in its first step "
+              f"({ev['marker_error'][:60]}...), {inc['failure_class']} from the marker -> "
+              f"degrade -> {inc['policy']}: {summary['reason']}; exit {rc} after "
+              f"{len(attempts)} leg in {secs:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -2762,6 +2938,7 @@ def main() -> int:
         dry = [pool.submit(all_dry_runs), pool.submit(engine_dry_runs),
                pool.submit(ml_dry_runs)]
         cost_dry = pool.submit(runner_dry_cost)
+        probes = [probe_start(DATA_IMAGE), probe_start(SUP_OOM_IMAGE)]
         secs = _build.build_kernels(verbose=True)
         card = card_line()
         print(f"build: {secs:.1f} s on {card}", flush=True)
@@ -2806,6 +2983,7 @@ def main() -> int:
     resilience_launches, resilience_info = timed(phase_resilience, whole_losses)
     timed(phase_quant, preds)
     timed(phase_telemetry, tot, cost_pred, resilience_info)
+    timed(phase_supervisor, probes)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"

@@ -458,7 +458,7 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
     wire, raw = dict(qc.WIRE_BYTES), dict(qc.RAW_BYTES)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     if peak is not None:
-        print(f"rank {rank}: peak {peak / 2**30:.2f} GiB", flush=True)
+        print(f"rank {rank}: peak {peak / 2**30:.2f} GiB ({peak} bytes)", flush=True)
     if args.profile_dir and last:
         _profile_step(args.profile_dir, rank, lambda: step(state, last["x"], last["y"]),
                       dev, say)

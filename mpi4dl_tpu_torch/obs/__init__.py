@@ -19,7 +19,9 @@ from mpi4dl_tpu_torch.obs.flight import (
     FlightRecorder,
     default_flight_path,
     flight_steps_from_env,
+    flight_summary,
     read_flight,
+    watermark_growth,
 )
 from mpi4dl_tpu_torch.obs.metrics import (
     metrics_from_records,
@@ -42,9 +44,10 @@ from mpi4dl_tpu_torch.obs.trend import format_trend, read_bench_artifact, trend_
 __all__ = [
     "FlightRecorder", "RunLog", "active_hatches", "arithmetic_intensity",
     "chrome_trace", "counting", "default_flight_path", "device_memory_watermarks",
-    "flight_steps_from_env", "format_trend", "host_rss_peak_bytes", "ici_bytes_per_s",
+    "flight_steps_from_env", "flight_summary", "format_trend", "host_rss_peak_bytes",
+    "ici_bytes_per_s",
     "metrics_from_records", "metrics_from_runlog", "metrics_from_runlogs", "mfu",
     "peak_flops", "read_bench_artifact", "read_flight", "read_runlog",
     "recording_scopes", "scope", "serve_metrics", "step_annotation", "step_cost",
-    "trace_from_runlog", "trend_report", "write_metrics_file",
+    "trace_from_runlog", "trend_report", "watermark_growth", "write_metrics_file",
 ]

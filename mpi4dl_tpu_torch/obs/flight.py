@@ -16,7 +16,11 @@ Every supervised run has one by default (``MPI4DL_NO_FLIGHT=1`` disables;
 ``MPI4DL_FLIGHT_STEPS`` sizes the ring).  The dump lands next to the crash
 marker when ``MPI4DL_CRASH_MARKER`` is set and next to the RunLog
 otherwise; rank r > 0 of a ``torchrun`` job writes ``flight.json.rank<r>``
-(the crash marker's per-rank rule).
+(the crash marker's per-rank rule) and records that rank in the dump.
+
+:func:`flight_summary` and :func:`watermark_growth` read a dump back for
+the supervisor's classifier.  Each rank holds one card, so the "device"
+they name is the rank whose dump it is.
 """
 
 from __future__ import annotations
@@ -163,6 +167,9 @@ class FlightRecorder:
                 "last_events": dict(self._last_events),
                 "dumps": list(self._dumps),
             }
+        from mpi4dl_tpu_torch.resilience.supervisor import process_rank
+
+        snap["rank"] = process_rank()
         snap["device_memory"] = device_memory_watermarks()
         snap["host_rss_peak_bytes"] = host_rss_peak_bytes()
         return snap
@@ -194,3 +201,48 @@ class FlightRecorder:
             return dest
         except Exception:  # noqa: BLE001
             return None  # deliberate: a failed dump must not kill the run
+
+
+def flight_summary(flight: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """The compact evidence block the supervisor attaches to incidents."""
+    if not flight or not isinstance(flight, dict):
+        return None
+    out: Dict[str, Any] = {
+        "reason": flight.get("reason"),
+        "phase": flight.get("phase"),
+        "gstep": flight.get("gstep"),
+        "steps_seen": flight.get("steps_seen"),
+    }
+    growth = watermark_growth(flight)
+    if growth is not None:
+        out["watermark_growth_bytes"] = growth[0]
+        if growth[1] is not None:
+            out["watermark_growth_device"] = growth[1]
+    return out
+
+
+def watermark_growth(flight: Dict[str, Any]):
+    """(total growth bytes, fastest-growing device) over the dump's ring of
+    step records; None when the ring carries fewer than two watermarks (a
+    CPU run has none).  The device is an index into the steps'
+    ``per_device_peak_bytes``; a dump of a rank (one card, a one-element
+    list) names that rank instead."""
+    steps = [r for r in flight.get("ring", ())
+             if isinstance(r, dict) and r.get("kind") == "step"]
+    marks = [r["memory_peak_bytes"] for r in steps
+             if isinstance(r.get("memory_peak_bytes"), int)]
+    if len(marks) < 2:
+        return None
+    total = marks[-1] - marks[0]
+    per_dev_first = steps[0].get("per_device_peak_bytes")
+    per_dev_last = steps[-1].get("per_device_peak_bytes")
+    device = None
+    if (isinstance(per_dev_first, list) and isinstance(per_dev_last, list)
+            and len(per_dev_first) == len(per_dev_last) and per_dev_first):
+        deltas = [b - a for a, b in zip(per_dev_first, per_dev_last)]
+        best = max(deltas)
+        if best > 0:
+            device = deltas.index(best)
+            if len(deltas) == 1 and isinstance(flight.get("rank"), int):
+                device = flight["rank"]
+    return total, device

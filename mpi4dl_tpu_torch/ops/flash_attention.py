@@ -36,16 +36,22 @@ identity of :func:`mlo_merge`, which the ring relies on.
   matrix.  It serves CPU tensors and, by choice, fp32 on the card: the JAX
   package's backward is not a Pallas kernel either, and fp32 is not the
   slice's path.
+- Inside :func:`fake_launches`, fake tensors (``FakeTensorMode``) given to
+  :func:`block_flash` or :func:`block_flash_bwd` allocate what a launch
+  allocates and launch nothing (the memory probe's dry run of the card
+  path, ``benchmarks/mem_probe.py``).
 - :func:`mlo_merge` (:317-328) combines two states; :func:`flash_attention_local`
   (:331-347) is exact single-device attention through the block kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 NEG_INF = -1e30  # large-negative, not -inf: exp() of it is exactly 0 and
                  # max() never makes nan from (-inf) - (-inf).
@@ -199,6 +205,51 @@ def _launch(q, k, v, q_off, k_off, causal, scale) -> State:
     return o, m, l
 
 
+_FAKE_LAUNCHES = [False]
+
+
+@contextlib.contextmanager
+def fake_launches():
+    """Inside the block, K3 and its backward given fake tensors
+    (``FakeTensorMode``) allocate what their launches on the card allocate
+    (:func:`_fake_launch`, :func:`_fake_launch_bwd`) instead of running
+    their plain versions: launches nothing, counts nothing, needs no
+    card."""
+    prev = _FAKE_LAUNCHES[0]
+    _FAKE_LAUNCHES[0] = True
+    try:
+        yield
+    finally:
+        _FAKE_LAUNCHES[0] = prev
+
+
+def _fake_launch(q, k, v) -> State:
+    """What :func:`_launch` allocates: q (scaled to fp32 unless q, k and v
+    are bf16), k and v made contiguous, and the fp32 o, m and l."""
+    bh, t_q, d = q.shape
+    inputs = (q.contiguous() if _all_bf16(q, k, v) else q.float().contiguous(),
+              k.contiguous(), v.contiguous())
+    o = torch.empty((bh, t_q, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((bh, t_q), dtype=torch.float32, device=q.device)
+    out = o, m, torch.empty_like(m)
+    del inputs  # held, as the launch holds them, until the outputs exist
+    return out
+
+
+def _fake_launch_bwd(q, k, v, m, do, dl) -> Grads:
+    """What :func:`_launch_bwd` allocates: fp32 copies of m, dô and dl,
+    dô's bf16 hi and lo parts and the fp32 dq, dk and dv."""
+    inputs = [x.contiguous() for x in (q, k, v)]
+    inputs += [x.float().contiguous() for x in (m, do, dl)]
+    inputs += [torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+               for _ in range(2)]
+    out = (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+           torch.empty(k.shape, dtype=torch.float32, device=q.device),
+           torch.empty(k.shape, dtype=torch.float32, device=q.device))
+    del inputs  # held, as the launch holds them, until the outputs exist
+    return out
+
+
 def block_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_off: int = 0, k_off: int = 0, causal: bool = False,
                 scale: float = 1.0) -> State:
@@ -206,8 +257,11 @@ def block_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D]`` (any float type), k and v ``[BH, Tk, D]`` fp32 or bf16 (all three
     bf16: the tensor-core kernel), ``q_off``/``k_off`` the blocks' global
     positions.  CPU tensors take :func:`block_flash_plain`; CUDA tensors
-    launch the kernel (or raise)."""
+    launch the kernel (or raise); fake tensors inside :func:`fake_launches`
+    take :func:`_fake_launch`."""
     q_off, k_off = int(q_off), int(k_off)
+    if _FAKE_LAUNCHES[0] and is_fake(q):
+        return _fake_launch(q, k, v)
     if q.device.type == k.device.type == v.device.type == "cpu":
         return block_flash_plain(q, k, v, q_off, k_off, causal, scale)
     if q.device.type != "cuda":
@@ -291,8 +345,11 @@ def block_flash_bwd(q, k, v, m, do, dl, q_off: int = 0, k_off: int = 0,
     """K3's backward: fp32 ``(dq, dk, dv)`` of one block given its forward
     ``m`` and the cotangents ``do`` of ``o_hat`` and ``dl`` of ``l``.  CPU
     tensors take :func:`block_flash_bwd_plain`; CUDA tensors launch the
-    kernel, which takes bf16 q, k and v (or raise)."""
+    kernel, which takes bf16 q, k and v (or raise); bf16 fake tensors
+    inside :func:`fake_launches` take :func:`_fake_launch_bwd`."""
     q_off, k_off = int(q_off), int(k_off)
+    if _FAKE_LAUNCHES[0] and is_fake(q) and _all_bf16(q, k, v):
+        return _fake_launch_bwd(q, k, v, m, do, dl)
     if q.device.type == k.device.type == v.device.type == "cpu":
         return block_flash_bwd_plain(q, k, v, m, do, dl, q_off, k_off, causal, scale)
     if q.device.type != "cuda":

@@ -40,7 +40,10 @@ every stride-1 conv fits (no counterpart of the TPU VMEM caps in
 
 Beside the kernel, :func:`halo_conv2d_plain` computes the same function in
 plain PyTorch.  The wrapper takes it only for CPU tensors; for a CUDA tensor
-it launches the kernel or raises.  :data:`LAUNCHES` counts the launches of
+it launches the kernel or raises.  Inside :func:`fake_launches`, a fake
+tensor (``FakeTensorMode``) takes neither: the wrapper allocates what a
+launch allocates and launches nothing — the memory probe's dry run of the
+card path (``benchmarks/mem_probe.py``).  :data:`LAUNCHES` counts the launches of
 each kernel; :data:`TALLY` adds up their work where they launch
 (:func:`flops`, :func:`vector_flops`, :func:`nbytes`), for ``obs/costs.py``:
 a ctypes launch dispatches no aten op, so ``FlopCounterMode`` cannot see it.
@@ -61,6 +64,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 # Launches of each kernel, counted by the wrapper where it launches and
 # nowhere else (CPU tensors never launch).
@@ -258,8 +262,11 @@ def halo_conv2d(x: torch.Tensor, w: torch.Tensor,
     """K1 (``stat_window=None``) or K2.  Returns ``y``, or ``(y, sum,
     sumsq)`` with fp32 ``[Cout]`` statistics of the cast ``y`` over the
     window.  CPU tensors take :func:`halo_conv2d_plain`; CUDA tensors launch
-    the kernel (or raise)."""
+    the kernel (or raise); fake tensors inside :func:`fake_launches` take
+    :func:`_fake_launch`."""
     out_dtype = out_dtype or x.dtype
+    if _FAKE_LAUNCHES[0] and is_fake(x):
+        return _fake_launch(x, w, out_dtype, fuse_relu, stat_window)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return halo_conv2d_plain(x, w, out_dtype, fuse_relu, stat_window)
     if x.device.type != "cuda":
@@ -268,6 +275,48 @@ def halo_conv2d(x: torch.Tensor, w: torch.Tensor,
         return _launch(x, w, out_dtype, fuse_relu, stat_window)
     with torch.cuda.device(x.device):
         return _launch(x, w, out_dtype, fuse_relu, stat_window)
+
+
+# Pixels of the smallest tile any K2 launch takes (csrc/halo_conv.cu: the
+# tensor-core tiles are 64 or 128 pixels, the CUDA-core kernel's 64): a fake
+# launch sizes K2's scratch for that tile, the most rows any plan can take,
+# without asking a card for its plan.
+FAKE_TILE_M = 64
+_FAKE_LAUNCHES = [False]
+
+
+def _fake_launch(x, w, out_dtype, fuse_relu, stat_window):
+    """What :func:`_launch` allocates, on fake tensors, and nothing else:
+    ``y`` and, for K2, ``[2, rows, Cout]`` fp32 partials (one row a
+    :data:`FAKE_TILE_M` pixels: never fewer than :func:`stat_rows`) and their
+    ``[2, Cout]`` sum (not the plain version's fp32 copies of x, w and y).
+    Nothing launches and nothing is counted."""
+    _check(x, w, out_dtype)
+    n, hp, wp, _ = x.shape
+    kh, kw, _, cout = w.shape
+    h, wd = hp - kh + 1, wp - kw + 1
+    y = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
+    if stat_window is None:
+        return y
+    _check_window(stat_window, h, wd)
+    rows = -(-n * h * wd // FAKE_TILE_M)
+    part = torch.empty((2, rows, cout), dtype=torch.float32, device=x.device)
+    s, ss = part.sum(dim=1)
+    return y, s, ss
+
+
+@contextlib.contextmanager
+def fake_launches():
+    """Inside the block, K1 and K2 given a fake tensor (``FakeTensorMode``)
+    allocate what a launch on the card allocates (:func:`_fake_launch`)
+    instead of running their plain version: a dry run of the card path's
+    memory, on any device, that launches nothing and needs no card."""
+    prev = _FAKE_LAUNCHES[0]
+    _FAKE_LAUNCHES[0] = True
+    try:
+        yield
+    finally:
+        _FAKE_LAUNCHES[0] = prev
 
 
 class Dispatches:

@@ -19,14 +19,33 @@ under, and what it is made of.
   that dumps live stacks, the last RunLog + ``checkpoint`` records, and
   live host and CUDA memory stats before a hang dies silently.
 - :mod:`~mpi4dl_tpu_torch.resilience.supervisor` — the crash marker (per
-  rank) and the quarantine list the loop honors.
+  rank), the quarantine list the loop honors, and the elastic supervisor:
+  legs as rank sets, the typed failure taxonomy, per-class retry/backoff,
+  poison-batch quarantine, degrade-and-continue.
+- :mod:`~mpi4dl_tpu_torch.resilience.planner` — the degradation ladder,
+  the upward (re-expansion) search and the feasibility probe
+  (``benchmarks/mem_probe.py``) the supervisor re-plans with.
+- :mod:`~mpi4dl_tpu_torch.resilience.drill` — the fault drill harness
+  (``python -m mpi4dl_tpu_torch.resilience drill``): scripted disasters
+  with typed per-scenario verdicts; ``--supervisor`` drills the
+  supervisor's whole control plane.
 
-The supervisor's classifier and policies, the planner, the allocator, the
-fleet scheduler and the drill harness are not ported yet.
+The allocator and the fleet scheduler (``drill --fleet``) are not ported
+yet.
 """
 
 from __future__ import annotations
 
+from mpi4dl_tpu_torch.resilience.drill import (
+    DrillVerdict,
+    Scenario,
+    SupervisorScenario,
+    default_scenarios,
+    run_drills,
+    run_scenario,
+    run_supervisor_drills,
+    supervisor_scenarios,
+)
 from mpi4dl_tpu_torch.resilience.faults import (
     CKPT_FAULT_KINDS,
     FAULT_KINDS,
@@ -43,10 +62,31 @@ from mpi4dl_tpu_torch.resilience.faults import (
 from mpi4dl_tpu_torch.resilience.guard import AnomalyError, AnomalyGuard, global_norm
 from mpi4dl_tpu_torch.resilience.loop import LoopResult, run_supervised
 from mpi4dl_tpu_torch.resilience.preempt import PreemptionHandler
+from mpi4dl_tpu_torch.resilience.planner import (
+    INFEASIBLE,
+    Plan,
+    compile_probe,
+    degrade_candidates,
+    expand_candidates,
+    plan_degrade,
+    plan_expand,
+    required_devices,
+)
 from mpi4dl_tpu_torch.resilience.supervisor import (
+    FAILURE_CLASSES,
+    POLICIES,
+    Classification,
+    LegOutcome,
+    Policy,
+    Supervisor,
+    SupervisorResult,
+    backoff_delay,
+    classify_failure,
     crash_marker_path,
     quarantine_steps_from_env,
     read_crash_marker,
+    subprocess_leg_launcher,
+    supervise_knobs_from_env,
     write_crash_marker,
 )
 from mpi4dl_tpu_torch.resilience.watchdog import (
@@ -66,31 +106,58 @@ from mpi4dl_tpu_torch.resilience.writer import (
 
 __all__ = [
     "CKPT_FAULT_KINDS",
+    "FAILURE_CLASSES",
     "FAULT_KINDS",
     "HANG_EXIT_CODE",
+    "INFEASIBLE",
+    "POLICIES",
     "AnomalyError",
     "AnomalyGuard",
     "AsyncCheckpointWriter",
     "CheckpointWriteError",
+    "Classification",
+    "DrillVerdict",
     "FaultInjected",
     "FaultInjector",
     "FaultSpec",
+    "LegOutcome",
     "LoopResult",
     "MeshShrunk",
+    "Plan",
+    "Policy",
     "PreemptionHandler",
+    "Scenario",
     "StepWatchdog",
+    "Supervisor",
+    "SupervisorResult",
+    "SupervisorScenario",
+    "backoff_delay",
+    "classify_failure",
+    "compile_probe",
     "corrupt_file",
     "crash_marker_path",
+    "default_scenarios",
+    "degrade_candidates",
     "dump_stacks",
+    "expand_candidates",
     "fault_from_env",
     "global_norm",
     "lose_shard_files",
     "memory_report_lines",
     "parse_fault",
     "pending_bytes_budget",
+    "plan_degrade",
+    "plan_expand",
     "quarantine_steps_from_env",
     "read_crash_marker",
+    "required_devices",
+    "run_drills",
+    "run_scenario",
     "run_supervised",
+    "run_supervisor_drills",
+    "subprocess_leg_launcher",
+    "supervise_knobs_from_env",
+    "supervisor_scenarios",
     "synthetic_oom",
     "watchdog_budget_from_env",
     "watchdog_compile_budget_from_env",

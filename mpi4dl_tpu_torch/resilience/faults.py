@@ -52,6 +52,12 @@ by-hand run.  Kinds:
 
 Every injector fires at most once per process — deterministic single-shot
 semantics, so "exactly one rollback" is a meaningful assertion.
+
+Ranks (the port's addition): ``MPI4DL_FAULT_RANKS`` (a comma-separated
+list) confines the fault to those ranks of a job; unset, every rank
+injects it.  One rank's ``oom_step`` is how a rank set's failure evidence
+is tested: the supervisor must report that rank's class, not the stuck
+peers'.
 """
 
 from __future__ import annotations
@@ -144,7 +150,16 @@ def parse_fault(text: Optional[str]) -> Optional[FaultSpec]:
 
 
 def fault_from_env() -> Optional[FaultSpec]:
-    return parse_fault(os.environ.get("MPI4DL_FAULT", ""))
+    """``MPI4DL_FAULT``, or None on a rank that ``MPI4DL_FAULT_RANKS``
+    leaves out."""
+    spec = parse_fault(os.environ.get("MPI4DL_FAULT", ""))
+    ranks = os.environ.get("MPI4DL_FAULT_RANKS", "").strip()
+    if spec is not None and ranks:
+        from mpi4dl_tpu_torch.resilience.supervisor import process_rank
+
+        if process_rank() not in {int(t) for t in ranks.split(",") if t.strip()}:
+            return None
+    return spec
 
 
 def _dir_shard_files(path: str):
