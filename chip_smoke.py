@@ -261,7 +261,28 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    classifies it ``oom_compile`` from the crash marker, the policy is
    ``degrade``, the ladder has no rung for ``lp`` at one stage and one
    part, so it fails with exit 1 and the typed reason, after one leg.
-26. The kernels' JSON line, the card line, and last the result line.  K1's
+26. The step instruments (``obs/{scopes,comm_stats,hbm,timeline,overlap,
+   kineto,trace}.py``, ``benchmarks/profile_step.py``).  (a)
+   ``profile_step.py`` on phase 3's step, ``INSTRUMENT_STEPS`` profiled
+   steps: exactly 80 K2 and 80 K1 kernels a step in the trace (told apart
+   by where they launched: forward or an autograd node), each attributed to
+   a ``cellNN`` scope; named scopes hold at least ``COVERAGE`` of the device
+   time; the per-scope device times add up to the trace's own total within
+   1%; K1's and K2's profiled ms a step are printed beside phase 2's
+   CUDA-graph ms.  (b) ``mem_probe --attribute`` of phase 25's ``lp`` step
+   on fake tensors (a subprocess beside phases 1-3) and the same
+   attribution of one step on the card with real tensors
+   (``mem_probe.card_attribution``): coverage at least ``COVERAGE`` on both,
+   the card tracker's peak within ``PROBE_TOLERANCE`` of
+   ``torch.cuda.max_memory_allocated``, the same top scope group on both.
+   (c) That step's analytical timeline at the card's rates, serialized ≥
+   perfect overlap; the one-process step moves no collective, so its
+   ledger reads 0 bytes and ``hidden_frac`` None (not a failure).  (d)
+   ``python -m mpi4dl_tpu_torch.obs overlap --profile`` and ``trace
+   --profile`` on the saved trace, and ``report`` rendering the ``hbm``,
+   ``timeline`` (measured and analytical), ``overlap`` and ``xprof_ops``
+   records.
+27. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -269,10 +290,10 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
    GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-19 run between phases 3 and 4, phases 20-25 after phase 6, each
+Phases 7-19 run between phases 3 and 4, phases 20-26 after phase 6, each
 printing its seconds.  The
-dry runs (meta device, CPU only; phase 24's count too) and phase 25's
-probes run in worker processes from the start, beside phases 1-3.
+dry runs (meta device, CPU only; phase 24's count too) and the probes of
+phases 25 and 26 run in worker processes from the start, beside phases 1-3.
 """
 
 from __future__ import annotations
@@ -2746,11 +2767,12 @@ SUP_OOM_IMAGE = 4096  # ~16x the 1024^2 step's activations: above the card
 PROBE_TOLERANCE = 0.15  # the probe's estimate against the card's peak
 
 
-def probe_start(image: int):
+def probe_start(image: int, extra=()):
     """Phase 25's memory probe of the ``lp`` runner's step at phase 20's
     flags and ``image``² (``benchmarks.mem_probe``: fake tensors, on the
     CPU, no CUDA context), started as a subprocess beside phases 1-3;
-    ``(process, JSON path)``."""
+    ``(process, JSON path)``.  ``extra``: more probe flags (phase 26's
+    ``--attribute``)."""
     import tempfile
 
     flags = list(DATA_FLAGS[:-2])
@@ -2758,7 +2780,7 @@ def probe_start(image: int):
     fd, path = tempfile.mkstemp(prefix="chip_smoke_probe_", suffix=".json")
     os.close(fd)
     cmd = [sys.executable, "-m", "mpi4dl_tpu_torch.benchmarks.mem_probe", "--family", "lp",
-           "--schedule", "gpipe", "--out", path, *flags]
+           "--schedule", "gpipe", "--out", path, *extra, *flags]
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     atexit.register(lambda: proc.poll() is None and proc.kill())
@@ -2896,6 +2918,141 @@ def phase_supervisor(probes):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# The instruments phase: phase 3's step profiled scope by scope, and phase
+# 25's lp step attributed on fake tensors and on the card.
+INSTRUMENT_STEPS = 2  # profiled steps of phase 26 (a)
+COVERAGE = 0.9  # named scopes' share of the device time and of the peak bytes
+_CELL = re.compile(r"(^|/)cell\d\d(/|$)")
+
+
+def phase_instruments(tot, probe):
+    """The step instruments (module docstring, phase 26)."""
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_instruments_")
+    try:
+        trace, tele = instruments_profile(tot, work)
+        instruments_attribution(probe, work, trace, tele)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def instruments_profile(tot, work):
+    """Phase 26 (a): phase 3's step, profiled; (trace path, telemetry dir)."""
+    from mpi4dl_tpu_torch.benchmarks import profile_step as ps
+    from mpi4dl_tpu_torch.obs import kineto
+
+    card = card_line()
+    out, tele = os.path.join(work, "profile"), os.path.join(work, "tele")
+    assert ps.main(["--steps", str(INSTRUMENT_STEPS), "--out", out,
+                    "--telemetry-dir", tele]) == 0
+    with open(os.path.join(out, ps.SUMMARY_NAME)) as f:
+        summary = json.load(f)
+    tl, kern = summary["timeline"], summary["kernels"]
+    trace = os.path.join(out, ps.TRACE_NAME)
+    raw = kineto.load(trace)
+    total_ms = sum(e["dur"] for e in raw["traceEvents"] if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+    rows_ms = sum(r["device_ms"] for r in tl["rows"])
+    print(f"instruments (a): {INSTRUMENT_STEPS} profiled steps of AmoebaNet-D(18,416) "
+          f"1024^2 bs1: {tl['ops']} device ops, {tl['total_ms']:.1f} ms, "
+          f"{100 * tl['coverage']:.2f}% in named scopes, per-scope sum {rows_ms:.3f} "
+          f"of the trace's {total_ms:.3f} ms; {tl['by_neighbour']} ops by stream "
+          f"neighbour; {card}", flush=True)
+    for r in tl["rows"][:12]:
+        print(f"instruments (a):   {r['device_ms'] / INSTRUMENT_STEPS:9.3f} ms/step "
+              f"{100 * r['share']:5.1f}%  {r['scope']}", flush=True)
+    print("instruments (a): device ms a step by family: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in summary["families"].items()), flush=True)
+    for name, key in (("halo_conv2d_stats", "K2"), ("halo_conv2d", "K1")):
+        k = kern[name]
+        print(f"instruments (a): {key} ({name}): {k['launches_per_step']} launches, "
+              f"{k['ms_per_step']:.3f} ms a step profiled, {tot[key]['ms']:.3f} ms a step "
+              f"in phase 2's CUDA graphs; {len(k['scopes'])} scopes, "
+              f"{k['unlinked']} unlinked", flush=True)
+        assert k["launches_per_step"] == 80, (name, k)
+        assert k["scopes"] and all(_CELL.search(sc) for sc in k["scopes"]), k["scopes"]
+    assert tl["coverage"] >= COVERAGE, tl["coverage"]
+    assert abs(rows_ms - total_ms) <= 0.01 * total_ms, (rows_ms, total_ms)
+    return trace, tele
+
+
+def instruments_attribution(probe, work, trace, tele):
+    """Phase 26 (b)-(d): phase 25's lp step attributed on fake tensors (the
+    probe) and on the card, its analytical timeline, the CLI."""
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.mem_probe import card_attribution
+    from mpi4dl_tpu_torch.config import config_from_args, get_parser
+    from mpi4dl_tpu_torch.obs import RunLog
+    from mpi4dl_tpu_torch.obs.comm_stats import scope_collectives
+    from mpi4dl_tpu_torch.obs.costs import ici_bytes_per_s, peak_flops
+    from mpi4dl_tpu_torch.obs.hbm import top_group
+    from mpi4dl_tpu_torch.obs.overlap import ledger_from_records
+    from mpi4dl_tpu_torch.obs.timeline import analytical_timeline
+
+    card = card_line()
+    dev = torch.device("cuda")
+    # (b) phase 25's lp step attributed: fake tensors (the probe) and the card.
+    fake = probe_result(probe)["hbm"]
+    cfg = config_from_args(get_parser().parse_known_args(DATA_FLAGS)[0])
+    torch.cuda.empty_cache()
+    got = card_attribution(cfg, "lp", dev)
+    hbm, cost = got["hbm"], got["cost"]
+    ratio = hbm["reconcile"]["ratio_est_over_actual"]
+    print(f"instruments (b): lp step at phase 20's flags: probe peak "
+          f"{fake['peak_bytes_est']} B, coverage {fake['coverage']}, top group "
+          f"{top_group(fake)!r}; card tracker peak {hbm['peak_bytes_est']} B against "
+          f"max_memory_allocated {hbm['reconcile']['memory_analysis_peak_bytes']} B "
+          f"(ratio {ratio}), coverage {hbm['coverage']}, top group {top_group(hbm)!r}; "
+          f"{card}", flush=True)
+    for k, v in list(hbm["by_scope"].items())[:8]:
+        print(f"instruments (b):   {v / 2**20:10.1f} MiB  {k}", flush=True)
+    assert fake["coverage"] >= COVERAGE and hbm["coverage"] >= COVERAGE, (fake, hbm)
+    assert abs(ratio - 1) <= PROBE_TOLERANCE, ratio
+    assert top_group(hbm) == top_group(fake), (top_group(hbm), top_group(fake))
+
+    # (c) its analytical timeline at the card's rates; no collective moves.
+    peak, psrc = peak_flops(dev)
+    ici, isrc = ici_bytes_per_s(dev)
+    records = cost["collective_records"]
+    ledger = ledger_from_records(records, compute_ms=cost["flops"] / peak * 1e3,
+                                 ici_bw=ici, ici_source=isrc, peak=peak, peak_source=psrc)
+    timeline = analytical_timeline(cost["by_scope"], scope_collectives(records),
+                                   peak=peak, peak_source=psrc, ici_bw=ici,
+                                   ici_source=isrc, ledger=ledger)
+    print(f"instruments (c): analytical timeline: serialized {timeline['serialized_ms']} "
+          f"ms, perfect overlap {timeline['overlapped_ms']} ms, {timeline['total_flops']:.6g}"
+          f" FLOP; the one-process step moves no collective: {ledger['totals']['bytes']} "
+          f"bytes, hidden_frac {ledger['hidden_frac']} (not a failure)", flush=True)
+    assert timeline["serialized_ms"] >= timeline["overlapped_ms"], timeline
+    assert timeline["total_flops"] > 0, timeline
+    assert ledger["totals"]["bytes"] == 0 and ledger["hidden_frac"] is None, ledger
+
+    # (d) the CLI on the saved trace and the records.
+    log = next(os.path.join(tele, f) for f in os.listdir(tele) if f.endswith(".jsonl"))
+    with RunLog(log) as runlog:
+        runlog.write("hbm", label="lp", breakdown=hbm)
+        runlog.write("timeline", label="lp", **timeline)
+        runlog.write("overlap", label="lp", **ledger)
+    rc, text = _obs_cli(["overlap", "--profile", trace])
+    assert rc == 0 and "exposed-wire ledger" in text, text
+    path = os.path.join(work, "trace.json")
+    rc, text = _obs_cli(["trace", "--profile", trace, "--out", path])
+    with open(path) as f:
+        lanes = {e["args"]["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "M" and e["name"] == "thread_name"}
+    assert rc == 0 and {"wire", "device stalls"} <= lanes, lanes
+    rc, text = _obs_cli(["report", log])
+    for line in ("hbm attribution [lp]", "analytical timeline:", "wire [lp]:",
+                 "measured timeline [profile_step]:", "device ops: total self time"):
+        assert line in text, (line, text)
+    assert rc == 0
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -2939,6 +3096,7 @@ def main() -> int:
                pool.submit(ml_dry_runs)]
         cost_dry = pool.submit(runner_dry_cost)
         probes = [probe_start(DATA_IMAGE), probe_start(SUP_OOM_IMAGE)]
+        attributed = probe_start(DATA_IMAGE, ["--attribute"])
         secs = _build.build_kernels(verbose=True)
         card = card_line()
         print(f"build: {secs:.1f} s on {card}", flush=True)
@@ -2984,6 +3142,7 @@ def main() -> int:
     timed(phase_quant, preds)
     timed(phase_telemetry, tot, cost_pred, resilience_info)
     timed(phase_supervisor, probes)
+    timed(phase_instruments, tot, attributed)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"

@@ -294,8 +294,9 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (NCCL, one card per rank) or cpu (gloo)")
     p.add_argument("--profile-dir", default=None,
-                   help="profile one more step; per-rank device-time tables "
-                        "go to this directory")
+                   help="profile one more step; per-rank device-time tables and "
+                        "Chrome traces go to this directory (with --telemetry-dir "
+                        "also its timeline and overlap records)")
     p.add_argument("--telemetry-dir", default=None,
                    help="write a RunLog JSONL (meta, the warm-up step's cost "
                         "record: FLOPs, bytes, peak for the MFU; step, "
@@ -398,6 +399,7 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
                     st, m = step(st, x, y)
                 sync()
                 write_cost(runlog, cost, dev, group)
+                last["cost"] = cost
                 return st, m
             st, m = step(st, x, y)
             sync()
@@ -461,7 +463,8 @@ def run(family: str, model: str, argv=None, on_restore=None) -> dict:
         print(f"rank {rank}: peak {peak / 2**30:.2f} GiB ({peak} bytes)", flush=True)
     if args.profile_dir and last:
         _profile_step(args.profile_dir, rank, lambda: step(state, last["x"], last["y"]),
-                      dev, say)
+                      dev, say, runlog_path=runlog.path if runlog is not None else None,
+                      cost=last.get("cost"), cfg=cfg, family=family)
     say(meter.summary(), flush=True)
     fed = [f + m for f, m in zip(waits[1:], meter.times_ms)]  # after the warm-up
     # A step overlaps a background write when it ran between the end of a
@@ -511,8 +514,9 @@ def write_cost(runlog, cost, dev, group) -> None:
     On ranks every rank takes part: each counts its own step, the counts
     are gathered over ``group`` to rank 0, and the record holds
     ``flops_by_rank`` and ``flops`` = their mean (one card's share, so the
-    report's MFU divides by one card's peak).  The JAX record's
-    ``collectives`` waits for the port's compiled-program statistics.
+    report's MFU divides by one card's peak).  ``collectives`` holds the
+    counted step's collectives on this rank (``obs/comm_stats.py``: per
+    class count and bytes, the JAX record's schema).
     Only ``runlog``'s holder writes; an error (in the counting, on any rank,
     or here) becomes a ``cost_error`` record and a printed note instead:
     telemetry must never kill a run, nor hide a failure."""
@@ -538,7 +542,7 @@ def write_cost(runlog, cost, dev, group) -> None:
                      arithmetic_intensity=arithmetic_intensity(flops, nbytes),
                      tick_scopes=[s for s in cost["scopes"] if s in TICK_SCOPES],
                      peak_flops=peak, peak_source=src, device_count=run_device_count(),
-                     kernels=cost["kernels"], **extra)
+                     kernels=cost["kernels"], collectives=cost["collectives"], **extra)
     except Exception as e:  # noqa: BLE001 — telemetry must never kill a run
         if runlog is not None:
             runlog.write("cost_error", error=repr(e))
@@ -566,9 +570,26 @@ def tail_agreement(tail, group) -> dict:
             "tail_max_abs_diff": worst}
 
 
-def _profile_step(path: str, rank: int, step, dev, say) -> None:
-    """One profiled step: its device time by kernel to
-    ``path/rank<r>.txt`` and the device's busy share of the step."""
+def _profile_step(path: str, rank: int, step, dev, say, runlog_path=None, cost=None,
+                  cfg=None, family=None) -> None:
+    """One profiled step: its device time by kernel to ``path/rank<r>.txt``,
+    its Chrome trace to ``path/rank<r>.trace.json.gz`` (with the
+    collectives of one more recorded step beside it,
+    ``<trace>.collectives.json``: ``obs/overlap.py`` matches them to the
+    trace's NCCL kernels) and the device's busy share of the step.  With
+    ``runlog_path`` (rank 0's RunLog) the measured ``timeline`` and
+    ``overlap`` records of the profiled step are appended to it, and the
+    analytical ``timeline`` of the counted warm-up (``cost``)."""
+    from mpi4dl_tpu_torch.obs import kineto
+    from mpi4dl_tpu_torch.obs.comm_stats import recording_collectives, scope_collectives
+    from mpi4dl_tpu_torch.obs.costs import ici_bytes_per_s
+    from mpi4dl_tpu_torch.obs.overlap import ledger_from_records, ledger_from_trace
+    from mpi4dl_tpu_torch.obs.timeline import analytical_timeline, measured_timeline
+
+    with recording_collectives() as records:
+        step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -586,5 +607,31 @@ def _profile_step(path: str, rank: int, step, dev, say) -> None:
     sort = "self_cuda_time_total" if dev.type == "cuda" else "self_cpu_time_total"
     with open(os.path.join(path, f"rank{rank}.txt"), "w") as f:
         f.write(avgs.table(sort_by=sort, row_limit=40))
+    trace_path = os.path.join(path, f"rank{rank}.trace.json.gz")
+    prof.export_chrome_trace(trace_path)
+    kineto.save_collectives(trace_path, records)
     say(f"profile: step {wall_us / 1e3:.1f} ms wall, device busy "
-        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%)", flush=True)
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}%); trace {trace_path}",
+        flush=True)
+    if runlog_path is None:
+        return
+    tr = kineto.Trace(trace_path)
+    ledger = ledger_from_trace(tr)
+    records_out = [("timeline", dict(label="profile", **measured_timeline(tr))),
+                   ("overlap", dict(label="profile", **ledger))]
+    if cost is not None:
+        peak, psrc = peak_flops(dev, allow_cpu_nominal=True)
+        ici, isrc = ici_bytes_per_s(dev)
+        piped = cfg is not None and cfg.split_size > 1
+        rec_ledger = ledger_from_records(cost["collective_records"],
+                                         compute_ms=cost["flops"] / peak * 1e3, ici_bw=ici,
+                                         ici_source=isrc, peak=peak, peak_source=psrc)
+        records_out.append(("timeline", dict(label="warm-up", **analytical_timeline(
+            cost["by_scope"], scope_collectives(cost["collective_records"]), peak=peak,
+            peak_source=psrc, ici_bw=ici, ici_source=isrc, ledger=rec_ledger,
+            schedule=cfg.schedule if piped else None,
+            stages=cfg.split_size if piped else None,
+            parts=cfg.parts if piped else None))))
+    with RunLog(runlog_path) as runlog:
+        for kind, fields in records_out:
+            runlog.write(kind, **fields)

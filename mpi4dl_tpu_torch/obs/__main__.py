@@ -2,19 +2,25 @@
 ``python -m mpi4dl_tpu_torch.obs report run.jsonl [more.jsonl ...]``,
 ``... report --compare A.jsonl B.jsonl [--threshold PCT]``,
 ``... report --trend DIR [--trend-out F]``,
-``... trace --runlog F --out trace.json``, and
-``... metrics run.jsonl|DIR [...] [--out F] [--serve [PORT]]``.
+``... overlap --families lp,sp|all | --profile F [--json] [--out F]``,
+``... trace [--families lp,... | --profile F] [--runlog F] --out trace.json``,
+and ``... metrics run.jsonl|DIR [...] [--out F] [--serve [PORT]]``.
 
 ``report`` renders the summary of one or more RunLog files (obs/report.py),
 the per-metric regression diff of two, or the directory-wide trajectory +
-gate (obs/trend.py).  ``trace`` exports a RunLog's measured walls as
-Chrome/Perfetto trace-event JSON (obs/trace.py).  ``metrics`` renders
-RunLogs as OpenMetrics text (obs/metrics.py).  The commands read files and
-need no device.  ``overlap`` and ``trace --families/--hlo`` read the
-compiled program, which the port's telemetry does not analyse yet
-(ROADMAP A15, second half): they exit 2 and say so.  Exit status: 0 on
-success, 1 when --compare/--trend finds a regression past the threshold,
-2 on usage errors or unreadable files.
+gate (obs/trend.py).  ``overlap`` prints exposed-wire ledgers
+(obs/overlap.py): ``--families`` runs each family's contract-sized step on
+the CPU (obs/families.py; the ``fake`` process group records its
+collectives, every transfer sync as on the JAX package's CPU backend),
+``--profile F`` ledgers a Chrome trace saved from a profiled step on the
+card (``benchmarks/profile_step.py``, the runners' ``--profile-dir``).
+``trace`` exports the same steps' wire, stall, timeline and pipeline lanes
+and/or a RunLog's measured walls as Chrome/Perfetto trace-event JSON
+(obs/trace.py).  ``metrics`` renders RunLogs as OpenMetrics text
+(obs/metrics.py).  ``--hlo`` (the JAX CLI's compiled-HLO dump) exits 2:
+PyTorch compiles no HLO; ``--profile`` is its counterpart.  Exit status:
+0 on success, 1 when --compare/--trend finds a regression past the
+threshold, 2 on usage errors or unreadable files.
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ import os
 import sys
 from typing import List, Optional
 
-_NOT_PORTED = ("the compiled-program telemetry (overlap ledger, HLO trace "
-               "lanes) is not ported yet (ROADMAP A15, second half)")
+_NO_HLO = ("--hlo reads a compiled-HLO text dump; a PyTorch step compiles no "
+           "HLO: use --profile F (a torch.profiler Chrome trace) or --families")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -63,19 +69,33 @@ def main(argv: Optional[List[str]] = None) -> int:
         "--trend-out", default=None, metavar="F",
         help="also write the --trend JSON artifact to this file",
     )
-    sub.add_parser(
-        "overlap", add_help=False,
-        help="exposed-wire ledger of the compiled program: not ported yet",
+    ovl = sub.add_parser(
+        "overlap",
+        help="exposed-wire ledger of engine families (their contract-sized "
+             "steps on the CPU) or of a profiled step's Chrome trace",
     )
+    ovl.add_argument("--families", default=None,
+                     help="comma-separated engine families ('all' = every "
+                          "contract family)")
+    ovl.add_argument("--profile", default=None, metavar="F",
+                     help="ledger a torch.profiler Chrome trace (.json[.gz])")
+    ovl.add_argument("--hlo", default=None, metavar="F", help=argparse.SUPPRESS)
+    ovl.add_argument("--json", action="store_true",
+                     help="machine-readable ledgers on stdout")
+    ovl.add_argument("--out", default=None, metavar="F",
+                     help="also write the JSON ledgers to this file")
     trc = sub.add_parser(
         "trace",
-        help="Chrome/Perfetto trace-event export of a RunLog's measured "
-             "step walls, checkpoint saves and resilience events",
+        help="Chrome/Perfetto trace-event export: engine families or a "
+             "profiled step (wire, device stall, timeline and pipeline "
+             "lanes) and/or a RunLog's measured step walls",
     )
     trc.add_argument("--families", default=None,
-                     help="compiled engine families: not ported yet")
-    trc.add_argument("--hlo", default=None, metavar="F",
-                     help="compiled-HLO text dump: not ported yet")
+                     help="comma-separated engine families ('all' = every "
+                          "contract family)")
+    trc.add_argument("--profile", default=None, metavar="F",
+                     help="lanes of a torch.profiler Chrome trace")
+    trc.add_argument("--hlo", default=None, metavar="F", help=argparse.SUPPRESS)
     trc.add_argument("--runlog", default=None, metavar="F",
                      help="measured lanes from this RunLog .jsonl")
     trc.add_argument("--out", default=None, metavar="F", required=True,
@@ -99,13 +119,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="serve /metrics over stdlib HTTP, re-reading the RunLog per "
              "scrape (PORT defaults to the MPI4DL_METRICS_PORT hatch)",
     )
-    args, extra = ap.parse_known_args(argv)
+    args = ap.parse_args(argv)
     if args.cmd == "overlap":
-        print(f"obs overlap: {_NOT_PORTED}", file=sys.stderr)
-        return 2
-    if extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
-
+        return _overlap_cmd(args)
     if args.cmd == "trace":
         return _trace_cmd(args)
     if args.cmd == "metrics":
@@ -154,24 +170,118 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 2  # pragma: no cover — argparse enforces the subcommand
 
 
-def _trace_cmd(args) -> int:
-    """``obs trace --runlog F``: Chrome/Perfetto trace-event JSON of a
-    RunLog's measured lanes."""
-    from mpi4dl_tpu_torch.obs.runlog import read_runlog
-    from mpi4dl_tpu_torch.obs.trace import chrome_trace, trace_from_runlog
+def _families(arg: str):
+    from mpi4dl_tpu_torch.obs.families import ENGINE_FAMILIES
 
-    if args.hlo or args.families:
-        print(f"obs trace: --families/--hlo: {_NOT_PORTED}", file=sys.stderr)
+    fams = (list(ENGINE_FAMILIES) if arg == "all"
+            else [f.strip() for f in arg.split(",") if f.strip()])
+    unknown = [f for f in fams if f not in ENGINE_FAMILIES]
+    return fams, (f"unknown engine(s) {unknown}; have {list(ENGINE_FAMILIES)}"
+                  if unknown else None)
+
+
+def _overlap_cmd(args) -> int:
+    """``obs overlap``: per-family (or per-profile) exposed-wire ledgers."""
+    from mpi4dl_tpu_torch.obs.overlap import format_ledger, ledger_from_trace
+
+    if args.hlo:
+        print(f"obs overlap: {_NO_HLO}", file=sys.stderr)
         return 2
-    if not args.runlog:
-        print("obs trace: need --runlog", file=sys.stderr)
+    if bool(args.profile) == bool(args.families):
+        print("obs overlap: need exactly one of --families or --profile",
+              file=sys.stderr)
         return 2
-    try:
-        records = read_runlog(args.runlog)
-    except OSError as e:
-        print(f"obs trace: cannot read {args.runlog}: {e}", file=sys.stderr)
+    ledgers = {}
+    if args.profile:
+        try:
+            ledgers[args.profile] = ledger_from_trace(args.profile)
+        except (OSError, ValueError) as e:
+            print(f"obs overlap: cannot read {args.profile}: {e}", file=sys.stderr)
+            return 2
+    else:
+        from mpi4dl_tpu_torch.obs.families import family_role
+
+        families, err = _families(args.families)
+        if err:
+            print(f"obs overlap: {err}", file=sys.stderr)
+            return 2
+        for family in families:
+            ledgers[family] = family_role(family)["overlap"]
+    payload = json.dumps(ledgers, indent=1, sort_keys=True)
+    # Write the artifact before stdout: a consumer truncating the pipe
+    # (e.g. `| head`) must not cost the caller its ledger file.
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(payload + "\n")
+    if args.json:
+        print(payload)
+    else:
+        for i, (name, ledger) in enumerate(ledgers.items()):
+            if i:
+                print()
+            print(f"== {name}")
+            print(format_ledger(ledger))
+    return 0
+
+
+def _trace_cmd(args) -> int:
+    """``obs trace``: Chrome/Perfetto trace-event JSON of engine families
+    (their recorded steps) or a profiled step, and/or a RunLog's measured
+    lanes."""
+    from mpi4dl_tpu_torch.obs.runlog import read_runlog
+    from mpi4dl_tpu_torch.obs.trace import (
+        chrome_trace, step_trace_events, trace_from_runlog,
+    )
+
+    if args.hlo:
+        print(f"obs trace: {_NO_HLO}", file=sys.stderr)
         return 2
-    events = trace_from_runlog(records, label=args.runlog)
+    if args.profile and args.families:
+        print("obs trace: --families and --profile are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    if not (args.profile or args.families or args.runlog):
+        print("obs trace: need --families, --profile, or --runlog", file=sys.stderr)
+        return 2
+    events = []
+    if args.profile:
+        from mpi4dl_tpu_torch.obs import kineto
+        from mpi4dl_tpu_torch.obs.overlap import simulate, wire_events_from_trace
+        from mpi4dl_tpu_torch.obs.timeline import measured_timeline
+
+        try:
+            tr = kineto.Trace(args.profile)
+        except (OSError, ValueError) as e:
+            print(f"obs trace: cannot read {args.profile}: {e}", file=sys.stderr)
+            return 2
+        wire, spans, _ = wire_events_from_trace(tr)
+        events += step_trace_events(simulate(wire, spans), label=args.profile,
+                                    timelines=[measured_timeline(tr)])
+    elif args.families:
+        from mpi4dl_tpu_torch.obs.families import PARTS, STAGES, family_role, schedule_of
+        from mpi4dl_tpu_torch.obs.overlap import record_events, simulate
+
+        families, err = _families(args.families)
+        if err:
+            print(f"obs trace: {err}", file=sys.stderr)
+            return 2
+        for i, family in enumerate(families):
+            role = family_role(family)
+            led = role["overlap"]
+            wire = record_events(role["collective_records"], led["compute_ms"],
+                                 led["ici_bytes_per_s"])
+            events += step_trace_events(
+                simulate(wire, [(0.0, led["compute_ms"])]),
+                label=family, timelines=[role["timeline"]],
+                schedule=schedule_of(family), stages=STAGES, parts=PARTS,
+                step_ms=role["overlap"]["simulated_step_ms"], pid_base=1 + i * 10)
+    if args.runlog:
+        try:
+            records = read_runlog(args.runlog)
+        except OSError as e:
+            print(f"obs trace: cannot read {args.runlog}: {e}", file=sys.stderr)
+            return 2
+        events += trace_from_runlog(records, label=args.runlog)
     with open(args.out, "w", encoding="utf-8") as fh:
         json.dump(chrome_trace(events), fh)
         fh.write("\n")

@@ -51,6 +51,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from mpi4dl_tpu_torch.obs import scopes
+
 # Dense bf16 peak FLOP/s by card, matched by substring of the lowercased
 # torch.cuda.get_device_name (first match wins).  H100 SXM5: 989 TFLOP/s
 # (NVIDIA H100 data sheet); the card reads "NVIDIA H100 80GB HBM3".
@@ -162,7 +164,9 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         try:
             if formula is not None:
-                self.flops += formula(*args, **kwargs, out_val=out)
+                f = formula(*args, **kwargs, out_val=out)
+                self.flops += f
+                scopes.charge(f)
             if moves:
                 self.bytes += (sum(_tensor_bytes(a) for i, a in enumerate(args) if i not in unread)
                                + sum(_tensor_bytes(v) for k, v in kwargs.items()
@@ -187,15 +191,19 @@ def counting() -> Iterator[Dict[str, Any]]:
     dict filled when the block exits: ``flops``, ``bytes_accessed`` (aten
     ops plus the hand kernels), ``kernels`` ({name: launches, flops,
     bytes, and vector_flops where the kernel has them} of the kernels that
-    launched), ``scopes`` (the sorted names ``obs.scope`` opened) and
+    launched), ``scopes`` (the sorted names ``obs.scope`` opened),
+    ``by_scope`` ({scope path: FLOPs}, the hand kernels' included),
+    ``collectives`` (``obs/comm_stats.collective_stats`` of the
+    collectives issued), ``collective_records`` (each of them) and
     ``error`` (None, or the repr of the first error in the counting; the
     block itself runs on)."""
-    from mpi4dl_tpu_torch.obs.scopes import recording_scopes
+    from mpi4dl_tpu_torch.obs.comm_stats import collective_stats, recording_collectives
 
     out: Dict[str, Any] = {}
     before = _tallies()
     counter = _Counter()
-    with recording_scopes() as seen, counter:
+    with scopes.recording_scopes() as seen, scopes.charging() as work, \
+            recording_collectives() as records, counter:
         yield out
     kernels = {}
     for name, t in _tallies().items():
@@ -204,7 +212,8 @@ def counting() -> Iterator[Dict[str, Any]]:
     out.update(
         flops=counter.flops + sum(k["flops"] for k in kernels.values()),
         bytes_accessed=counter.bytes + sum(k["bytes"] for k in kernels.values()),
-        kernels=kernels, scopes=sorted(seen),
+        kernels=kernels, scopes=sorted(seen), by_scope=dict(work),
+        collectives=collective_stats(records), collective_records=list(records),
         error=None if counter.error is None else repr(counter.error))
 
 

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from mpi4dl_tpu_torch.obs.costs import mfu
 from mpi4dl_tpu_torch.obs.runlog import read_runlog
+from mpi4dl_tpu_torch.obs.timeline import bubble_fraction, pipeline_ticks
 # Same interpolation as StepMeter.stats(), so report percentiles of the raw
 # step records always match a run's own summary record.
 from mpi4dl_tpu_torch.utils.misc import _percentile as _pct
@@ -28,28 +29,6 @@ COLLECTIVE_CLASSES = (
     "collective-permute", "all-reduce", "all-gather", "reduce-scatter",
     "all-to-all",
 )
-
-
-def pipeline_ticks(schedule: str, stages: int, parts: int) -> Optional[int]:
-    """Ticks per optimizer step (the JAX package's ``obs/timeline.py``).
-    GPipe: ``parts + S - 1`` (each tick one micro-batch through one
-    stage).  1F1B: each tick runs one fwd AND one bwd micro-batch, and
-    fill+drain cover both directions: ``parts + 2(S - 1)``.  None for
-    unknown schedules."""
-    if schedule == "gpipe":
-        return parts + stages - 1
-    if schedule == "1f1b":
-        return parts + 2 * (stages - 1)
-    return None
-
-
-def bubble_fraction(schedule: str, stages: int, parts: int) -> Optional[float]:
-    """Idle-tick fraction of the schedule: ``(ticks - parts) / ticks`` —
-    GPipe ``(S-1)/(parts+S-1)``, 1F1B ``2(S-1)/(parts+2(S-1))``."""
-    ticks = pipeline_ticks(schedule, stages, parts)
-    if ticks is None or ticks <= 0:
-        return None
-    return (ticks - parts) / ticks
 
 
 def _fmt_bytes(n: Optional[float]) -> str:
@@ -389,7 +368,26 @@ def render_run(path: str) -> str:
         )
         for k, v in list((bd.get("by_scope") or {}).items())[:6]:
             lines.append(f"  {_fmt_bytes(v):>10}  {k}")
-    tl = _first(records, "timeline")
+    for tl in records:
+        if tl.get("kind") != "timeline" or tl.get("source") != "measured":
+            continue
+        label = tl.get("label")
+        lines.append(
+            "measured timeline" + (f" [{label}]" if label else "") + ": "
+            f"{tl.get('total_ms')} ms of device ops, {tl.get('coverage', 0):.1%} in "
+            f"named scopes ({tl.get('ops')} ops)"
+        )
+        for r in (tl.get("rows") or [])[:6]:
+            lines.append(f"  {r['device_ms']:>10.3f} ms  {r['scope']}")
+    ops = _first(records, "xprof_ops")
+    if ops is not None:
+        lines.append(f"device ops: total self time {ops.get('total_self_ms')} ms "
+                     f"(top {len(ops.get('ops') or [])})")
+        for o in (ops.get("ops") or [])[:6]:
+            lines.append(f"  {o.get('self_ms'):>10.3f} ms  x{o.get('occurrences')}  "
+                         f"{o.get('name')}  [{o.get('category')}]")
+    tl = next((r for r in records if r.get("kind") == "timeline"
+               and r.get("source") != "measured"), None)
     if tl is not None:
         lines.append(
             f"analytical timeline: serialized {tl.get('serialized_ms')} ms "

@@ -53,6 +53,8 @@ from typing import Optional, Tuple
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from mpi4dl_tpu_torch.obs import scopes
+
 NEG_INF = -1e30  # large-negative, not -inf: exp() of it is exactly 0 and
                  # max() never makes nan from (-inf) - (-inf).
 BWD_TILE = 512   # key tile of the backward: the tk that flash_attention_local
@@ -106,6 +108,7 @@ def _tally(name: str, q, k, backward: bool = False) -> None:
     LAUNCHES[name] += 1
     TALLY[name]["launches"] += 1
     TALLY[name]["flops"] += flops(bh, t_q, k.shape[1], d, backward)
+    scopes.charge(flops(bh, t_q, k.shape[1], d, backward))
     TALLY[name]["bytes"] += nbytes(bh, t_q, k.shape[1], d, q.element_size(),
                                    k.element_size(), backward)
 

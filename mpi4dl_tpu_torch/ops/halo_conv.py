@@ -66,6 +66,8 @@ import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
+from mpi4dl_tpu_torch.obs import scopes
+
 # Launches of each kernel, counted by the wrapper where it launches and
 # nowhere else (CPU tensors never launch).
 LAUNCHES = {"halo_conv2d": 0, "halo_conv2d_stats": 0}
@@ -217,6 +219,7 @@ def _tally(x, w, y, fuse_relu, stat_window, rows: int) -> None:
     t = TALLY[name]
     t["launches"] += 1
     t["flops"] += flops(x.shape, w.shape)
+    scopes.charge(flops(x.shape, w.shape))
     t["vector_flops"] += vector_flops(x.shape, w.shape, fuse_relu, stat_window)
     t["bytes"] += nbytes(x.shape, w.shape, x.element_size(), y.element_size(), rows)
 
@@ -290,8 +293,10 @@ def _fake_launch(x, w, out_dtype, fuse_relu, stat_window):
     ``y`` and, for K2, ``[2, rows, Cout]`` fp32 partials (one row a
     :data:`FAKE_TILE_M` pixels: never fewer than :func:`stat_rows`) and their
     ``[2, Cout]`` sum (not the plain version's fp32 copies of x, w and y).
-    Nothing launches and nothing is counted."""
+    Nothing launches and no launch is counted; the conv's FLOPs are charged
+    to the open scope (``obs.scopes.charge``: the probe's timeline)."""
     _check(x, w, out_dtype)
+    scopes.charge(flops(x.shape, w.shape))
     n, hp, wp, _ = x.shape
     kh, kw, _, cout = w.shape
     h, wd = hp - kh + 1, wp - kw + 1

@@ -162,8 +162,9 @@ def _accumulating_step(optimizer: Optimizer, params, grads_for, parts: int,
         metrics = {"loss": loss, "accuracy": acc}
         if reduce is not None:
             reduce(grads, stats, metrics)
-        state.opt_state = optimizer.update(params, grads, state.opt_state)
-        merge_stat_updates(stats)
+        with scope("optimizer_update"):
+            state.opt_state = optimizer.update(params, grads, state.opt_state)
+            merge_stat_updates(stats)
         state.step += 1
         return state, metrics
 
@@ -194,8 +195,9 @@ def _reducer(group, grad_scales, scale: float, grad_wire=None):
             qc.tally_all_reduce("grad", sum(g.numel() for g in grads)
                                 * (8 if grads[0].dtype == torch.float64 else 4),
                                 dist.get_world_size(group))
-            all_reduce_scaled_(list(grads) + rest, list(grad_scales) + [scale] * len(rest),
-                               group)
+            with scope("grad_reduce"):
+                all_reduce_scaled_(list(grads) + rest,
+                                   list(grad_scales) + [scale] * len(rest), group)
             return
         shape, axes, mode, block = grad_wire
         all_reduce_scaled_(rest, [scale] * len(rest), group)

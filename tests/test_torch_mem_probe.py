@@ -112,8 +112,8 @@ def test_family_cli_tabulates_the_roles(tmp_path, monkeypatch, win):
 
 
 @pytest.mark.parametrize("argv, code, says", [
-    (["--attribute"], 2, "A15"),
-    (["--sweep-junction"], 2, "A15"),
+    pytest.param(["--min-coverage", "0.9"], 2, "need --attribute", id="argv0-2-A15"),
+    pytest.param(["--sweep-junction"], 2, "probes the sp family", id="argv1-2-A15"),
     (["--family", "lp", "--schedule", "gpipe", "--require-1f1b-win"], 2, "both"),
 ])
 def test_cli_refuses_what_it_cannot_do(argv, code, says, capsys):

@@ -272,7 +272,13 @@ def test_runner_cost_record_counts_its_warmup_step(tmp_path):
     assert cost["peak_source"] == "nominal-cpu" and cost["peak_flops"] == 1e11
     assert cost["device_count"] == recs[0]["device_count"] == 1
     assert cost["tick_scopes"] == [] and cost["kernels"] == {}
-    assert "flops_by_rank" not in cost and "collectives" not in cost
+    assert "flops_by_rank" not in cost
+    # One device issues no collective (obs/comm_stats.py's record, the JAX
+    # record's schema).
+    assert cost["collectives"]["total_count"] == cost["collectives"]["total_bytes"] == 0
+    assert set(cost["collectives"]) == {"collective-permute", "all-reduce", "all-gather",
+                                        "reduce-scatter", "all-to-all", "total_count",
+                                        "total_bytes"}
     assert cost["arithmetic_intensity"] == cost["flops"] / cost["bytes_accessed"]
     assert os.path.exists(os.path.splitext(out["telemetry_path"])[0] + ".prom")
     # The same step counted directly: FLOPs do not depend on the values.

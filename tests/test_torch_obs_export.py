@@ -182,8 +182,9 @@ def test_cli_exit_codes_and_output_are_jaxs(tele, tmp_path, argv, capsys, monkey
         results.append((rc, text.out.replace(out, "OUT"), text.err.replace(out, "OUT"),
                         written))
     if argv == ["trace", "--out", "{out}"]:
-        # The port's usage message names the one source it reads.
-        assert results[0][2] == "obs trace: need --runlog\n"
+        # The port's usage message names its sources: --profile where JAX
+        # has --hlo.
+        assert results[0][2] == "obs trace: need --families, --profile, or --runlog\n"
         results = [r[:2] + r[3:] for r in results]
     assert results[0] == results[1]
 

@@ -9,8 +9,8 @@ obs/__main__.py) on the same RunLog files.
   and without a pipeline, and on a RunLog the port's runner wrote on the
   CPU (``--device cpu``, 3 steps, ``--telemetry-dir``).
 - ``compare_runs`` gives the same text and breach count.
-- ``main([...])`` gives JAX's exit codes; ``overlap`` and ``trace
-  --families/--hlo`` (the compiled-program half) exit 2 and say so.
+- ``main([...])`` gives JAX's exit codes; ``--hlo`` (a compiled-HLO dump,
+  which a PyTorch step has none of) exits 2 and says so.
 - JAX's ``obs report`` renders the port's RunLog, cost record included.
 """
 
@@ -226,12 +226,14 @@ def test_cli_exit_codes_and_text_are_jaxs(runlogs, argv, capsys):
 
 
 def test_cli_rejects_the_compiled_program_half(tmp_path, capsys):
-    assert main(["overlap", "--families", "lp"]) == 2
-    assert "ROADMAP A15, second half" in capsys.readouterr().err
+    """A PyTorch step compiles no HLO: ``--hlo`` is refused (``--profile``
+    and ``--families`` are its counterparts,
+    tests/test_torch_obs_instruments.py)."""
+    assert main(["overlap", "--hlo", "x.hlo"]) == 2
+    assert "compiles no HLO" in capsys.readouterr().err
     out = str(tmp_path / "t.json")
-    assert main(["trace", "--families", "lp", "--out", out]) == 2
     assert main(["trace", "--hlo", "x.hlo", "--out", out]) == 2
-    assert "ROADMAP A15, second half" in capsys.readouterr().err
+    assert "compiles no HLO" in capsys.readouterr().err
     assert not os.path.exists(out)
     with pytest.raises(SystemExit) as e:
         main(["report", "--bogus"])
