@@ -282,7 +282,24 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    --profile`` on the saved trace, and ``report`` rendering the ``hbm``,
    ``timeline`` (measured and analytical), ``overlap`` and ``xprof_ops``
    records.
-27. The kernels' JSON line, the card line, and last the result line.  K1's
+27. The multi-tenant fleet (``resilience/{allocator,fleet}.py``) on a pool
+   of one card, at phase 20's model and flags (the ``lp`` runner,
+   AmoebaNet-D(18, 416) 1024² bs1, bf16, the kernels on, remat off,
+   2-step epochs): one ``run_fleet_scenario`` (``FLEET_SCENARIO``) through
+   the real leg launcher.  ``lo`` (priority 0, 4 epochs) checkpoints at
+   step 2; then ``hi`` (priority 10, 2 epochs) and ``poison`` (priority 5,
+   the same flags at 4096²) arrive.  ``hi`` preempts ``lo``, which drains
+   at a step boundary and requeues; ``hi`` runs to ``done``; ``poison``
+   dies twice of the card's own ``CUDA out of memory`` (``oom_compile`` ->
+   ``degrade`` -> no rung -> a failed run) and is ``quarantined``; then
+   ``lo`` resumes from its own checkpoint and is ``done``.  The verdict
+   must be ``verified_recovery``; ``lo``'s losses, before the drain and
+   after the resume, equal its solo control's bitwise (the control leg
+   runs beside ``lo``'s resumed leg, ``EarlyControl``); every leg of
+   ``lo`` and ``hi`` launches 80 + 80 K1/K2 a step.  Printed: the fleet
+   timeline (``obs report``), the seconds from the drain request to
+   ``lo``'s exit and to ``poison``'s quarantine.
+28. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -290,7 +307,7 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
    GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-19 run between phases 3 and 4, phases 20-26 after phase 6, each
+Phases 7-19 run between phases 3 and 4, phases 20-27 after phase 6, each
 printing its seconds.  The
 dry runs (meta device, CPU only; phase 24's count too) and the probes of
 phases 25 and 26 run in worker processes from the start, beside phases 1-3.
@@ -3053,6 +3070,167 @@ def instruments_attribution(probe, work, trace, tele):
     assert rc == 0
 
 
+# The fleet phase: phase 20's model and flags on a pool of one card.
+FLEET_DEADLINE = 280.0  # seconds the scheduler may take (phase 27 < 300 s)
+
+
+def fleet_scenario():
+    """Phase 27's scenario: ``lo`` preempted by ``hi``, ``poison``
+    quarantined, ``lo`` resumed (module docstring)."""
+    from mpi4dl_tpu_torch.resilience import FleetJob, FleetScenario
+    from mpi4dl_tpu_torch.resilience.__main__ import _flags_from_argv
+
+    flags = _flags_from_argv(SUP_FLAGS)
+    flags.pop("model")
+    poison = {**flags, "image-size": SUP_OOM_IMAGE}
+
+    def arrive(sched):
+        sched.submit(FleetJob("hi", "lp", dict(flags), model="amoebanet", priority=10))
+        sched.submit(FleetJob("poison", "lp", poison, model="amoebanet", priority=5))
+
+    return FleetScenario(
+        "chip_smoke_fleet", pool=1,
+        jobs=(FleetJob("lo", "lp", {**flags, "num-epochs": 4}, model="amoebanet"),),
+        trigger=arrive, trigger_after="lo", trigger_min_step=2,
+        deadline_s=FLEET_DEADLINE,
+        expect_done=("lo", "hi"), expect_quarantined=("poison",),
+        expect_displaced=("lo",), expect_resumed=("lo",), expect_untouched=("hi",),
+        verify_loss=("lo",),
+    )
+
+
+class EarlyControl:
+    """Phase 27's launcher factory: the real rank-set launcher, except that
+    ``lo``'s solo control, which ``run_fleet_scenario`` asks for once the
+    fleet is done, starts beside ``lo``'s last leg (its second launch), at
+    that leg's flags and slice with its own checkpoint dir.  Nothing else
+    is on the card by then, and legs sharing the card train bitwise as they
+    do alone (phase 25 (b) runs three at once); it saves the control's
+    ~45 s of start-up and steps.  The control's request must name the same
+    flags and environment, and gets that leg's outcome."""
+
+    def __init__(self, wd):
+        self.wd, self.lo_launches, self.started = wd, 0, None
+
+    def __call__(self, family, model, workdir, *, job, on_spawn):
+        import threading
+
+        from mpi4dl_tpu_torch.resilience.supervisor import subprocess_leg_launcher
+
+        if job == "control-lo":
+            def control(flags, env, attempt):
+                thread, out, asked = self.started
+                assert (dict(flags), dict(env)) == asked, ((flags, env), asked)
+                thread.join()
+                return out["leg"]
+            return control
+        inner = subprocess_leg_launcher(family, model, workdir, job=job, on_spawn=on_spawn)
+        if job == "lo":
+            self.lo_launches += 1
+        if job != "lo" or self.lo_launches != 2:
+            return inner
+
+        def launch(flags, env, attempt):
+            if self.started is None:
+                asked = ({**flags, "checkpoint-dir": os.path.join(self.wd, "ck_control_lo")},
+                         dict(env))
+                out = {}
+                ctl = subprocess_leg_launcher(family, model, os.path.join(self.wd, "control_lo"),
+                                              job="control-lo")
+                thread = threading.Thread(target=lambda: out.update(leg=ctl(*asked, 1)))
+                thread.start()
+                self.started = (thread, out, asked)
+            return inner(flags, env, attempt)
+        return launch
+
+    def join(self):
+        if self.started is not None:
+            self.started[0].join()
+
+
+def _leg_results(fleet, job):
+    """Each leg's result of ``job`` in launch order (attempts within), from
+    the ``fleet`` records' launch workdirs."""
+    out = []
+    for rec in fleet:
+        if rec.get("event") == "launch" and rec.get("job") == job:
+            jobdir = os.path.join(rec["workdir"], job)
+            for a in sorted(os.listdir(jobdir), key=lambda n: int(n[len("attempt"):])):
+                path = os.path.join(jobdir, a, "leg_result.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        out.append(json.load(f))
+    return out
+
+
+def phase_fleet():
+    """The multi-tenant fleet on one card (module docstring, phase 27)."""
+    import tempfile
+
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.fleet_check import drains
+    from mpi4dl_tpu_torch.obs import read_runlog
+    from mpi4dl_tpu_torch.resilience import run_fleet_scenario
+
+    card = card_line()
+    torch.cuda.empty_cache()  # the legs below are processes of their own
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    sc = fleet_scenario()
+    wd = os.path.join(work, sc.name)
+    early = EarlyControl(wd)
+    try:
+        v = run_fleet_scenario(sc, work, log=lambda s: print(s, flush=True),
+                               launcher_factory=early)
+        assert v.passed and v.kind == "verified_recovery", (v.kind, v.details)
+        rc, _ = _obs_cli(["report", os.path.join(wd, "fleet.jsonl")])
+        assert rc == 0
+        fleet = [r for r in read_runlog(os.path.join(wd, "fleet.jsonl")) if r["kind"] == "fleet"]
+        at = {(r["event"], r.get("job")): r["t"] for r in reversed(fleet)}
+        (drain,) = drains(wd, fleet)
+        assert drain["job"] == "lo" and drain["ended"] == "drained", drain
+        jobs = v.details["jobs_final"]
+        assert {j: x["launches"] for j, x in jobs.items()} == {"lo": 2, "hi": 1, "poison": 2}
+        # Both of poison's runs died of the card's own OOM in their first step.
+        incidents = [r for name in ("supervisor01.jsonl", "supervisor02.jsonl")
+                     for r in read_runlog(os.path.join(wd, "jobs", "poison", name))
+                     if r["kind"] == "supervisor"]
+        assert len(incidents) == 2, incidents
+        for inc in incidents:
+            ev = inc["evidence"]
+            assert (inc["failure_class"], inc["policy"]) == ("oom_compile", "fail"), inc
+            assert ev["source"] == "marker:oom_pattern" and ev["marker_phase"] == "compile", ev
+            assert "CUDA out of memory" in ev["marker_error"], ev
+        # lo: drained, resumed, its losses bitwise its solo control's.
+        lo_legs = _leg_results(fleet, "lo")
+        with open(os.path.join(wd, "control_lo", "control-lo", "attempt1",
+                               "leg_result.json")) as f:
+            control = json.load(f)
+        assert len(lo_legs) == 2 and lo_legs[0]["preempted"], lo_legs
+        first, resumed = lo_legs
+        assert resumed["start_step"] == first["final_step"] >= 3, (first, resumed)
+        assert control["start_step"] == 0 and control["final_step"] == 8, control
+        assert first["losses"] == control["losses"][:first["final_step"]], (first, control)
+        assert resumed["losses"] == control["losses"][resumed["start_step"]:], (resumed, control)
+        assert resumed["loss"] == control["loss"] == v.details["final_loss_lo"]
+        for leg in lo_legs + _leg_results(fleet, "hi") + [control]:
+            steps = leg["final_step"] - leg["start_step"]
+            assert leg["launches"] == {"halo_conv2d": 80 * steps,
+                                       "halo_conv2d_stats": 80 * steps}, leg
+        quarantine_s = at[("quarantine", "poison")] - at[("submit", "poison")]
+        print(f"fleet: {v.kind}: lo drained at step {first['final_step']}, its exit "
+              f"{drain['s']:.3f} s after the drain request (checkpoint durable after "
+              f"{drain.get('to_saved_s')} s, then {drain.get('saved_to_exit_s')} s to the "
+              f"ranks' exit), resumed there with its losses "
+              f"{resumed['losses']} bitwise its solo control's; hi done in 1 leg; poison "
+              f"quarantined {quarantine_s:.3f} s after it arrived, after 2 runs that died of "
+              f"the card's own OOM ({incidents[0]['evidence']['marker_error'][:60]}...); "
+              f"80 + 80 K1/K2 a step in every leg of lo and hi; {card}", flush=True)
+    finally:
+        early.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -3143,6 +3321,7 @@ def main() -> int:
     timed(phase_telemetry, tot, cost_pred, resilience_info)
     timed(phase_supervisor, probes)
     timed(phase_instruments, tot, attributed)
+    timed(phase_fleet)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"

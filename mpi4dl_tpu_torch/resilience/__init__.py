@@ -29,9 +29,14 @@ under, and what it is made of.
   (``python -m mpi4dl_tpu_torch.resilience drill``): scripted disasters
   with typed per-scenario verdicts; ``--supervisor`` drills the
   supervisor's whole control plane.
-
-The allocator and the fleet scheduler (``drill --fleet``) are not ported
-yet.
+- :mod:`~mpi4dl_tpu_torch.resilience.allocator` — deterministic
+  first-fit-decreasing slices of a device pool, and a slice's environment
+  (``CUDA_VISIBLE_DEVICES`` on cards, a gloo rank count on the CPU).
+- :mod:`~mpi4dl_tpu_torch.resilience.fleet` — the multi-tenant fleet
+  scheduler: N prioritized jobs, each a supervisor on its slice, with
+  degraded admission, priority preemption as a graceful drain, slice loss,
+  re-expansion and poison quarantine; ``drill --fleet`` is its chaos
+  matrix.
 """
 
 from __future__ import annotations
@@ -58,6 +63,21 @@ from mpi4dl_tpu_torch.resilience.faults import (
     lose_shard_files,
     parse_fault,
     synthetic_oom,
+)
+from mpi4dl_tpu_torch.resilience.allocator import PackResult, Request, Slice, pack, slice_env
+from mpi4dl_tpu_torch.resilience.fleet import (
+    JOB_STATES,
+    TERMINAL_STATES,
+    FleetJob,
+    FleetResult,
+    FleetScenario,
+    FleetScheduler,
+    fleet_knobs_from_env,
+    fleet_pool,
+    fleet_scenarios,
+    run_fleet_drills,
+    run_fleet_scenario,
+    visible_cards,
 )
 from mpi4dl_tpu_torch.resilience.guard import AnomalyError, AnomalyGuard, global_norm
 from mpi4dl_tpu_torch.resilience.loop import LoopResult, run_supervised
@@ -110,7 +130,9 @@ __all__ = [
     "FAULT_KINDS",
     "HANG_EXIT_CODE",
     "INFEASIBLE",
+    "JOB_STATES",
     "POLICIES",
+    "TERMINAL_STATES",
     "AnomalyError",
     "AnomalyGuard",
     "AsyncCheckpointWriter",
@@ -120,13 +142,20 @@ __all__ = [
     "FaultInjected",
     "FaultInjector",
     "FaultSpec",
+    "FleetJob",
+    "FleetResult",
+    "FleetScenario",
+    "FleetScheduler",
     "LegOutcome",
     "LoopResult",
     "MeshShrunk",
+    "PackResult",
     "Plan",
     "Policy",
     "PreemptionHandler",
+    "Request",
     "Scenario",
+    "Slice",
     "StepWatchdog",
     "Supervisor",
     "SupervisorResult",
@@ -141,9 +170,13 @@ __all__ = [
     "dump_stacks",
     "expand_candidates",
     "fault_from_env",
+    "fleet_knobs_from_env",
+    "fleet_pool",
+    "fleet_scenarios",
     "global_norm",
     "lose_shard_files",
     "memory_report_lines",
+    "pack",
     "parse_fault",
     "pending_bytes_budget",
     "plan_degrade",
@@ -152,13 +185,17 @@ __all__ = [
     "read_crash_marker",
     "required_devices",
     "run_drills",
+    "run_fleet_drills",
+    "run_fleet_scenario",
     "run_scenario",
     "run_supervised",
     "run_supervisor_drills",
+    "slice_env",
     "subprocess_leg_launcher",
     "supervise_knobs_from_env",
     "supervisor_scenarios",
     "synthetic_oom",
+    "visible_cards",
     "watchdog_budget_from_env",
     "watchdog_compile_budget_from_env",
     "watchdog_escalation_from_env",

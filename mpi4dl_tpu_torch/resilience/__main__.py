@@ -10,8 +10,13 @@ supervisor and its leg entry point (counterpart of
     runs the SUPERVISOR scenario matrix instead (clean / oom-degrade /
     oom-step-degrade / transient-io): fault into leg 1 only, judge the
     classification, the feasibility-probed degrade, the elastic resume and
-    the final loss against a control.  ``--fleet`` (the fleet scheduler's
-    chaos matrix) is not ported yet and exits 2.
+    the final loss against a control.  ``--fleet`` runs the FLEET chaos
+    matrix (slice kill, preempt storm, crash cascade, OOM poison,
+    re-expansion: :func:`~mpi4dl_tpu_torch.resilience.fleet.fleet_scenarios`)
+    through the multi-tenant scheduler, its slices on the visible cards, or
+    on gloo ranks with ``--device cpu`` (pool 8, the JAX geometry)::
+
+        python -m mpi4dl_tpu_torch.resilience drill --fleet --device cpu --out fleet_out
 
 ``supervise``
     Run one training job under the elastic supervisor: legs as rank sets,
@@ -83,13 +88,12 @@ def _cmd_drill(args, parser, full_argv) -> int:
 
     if args.fleet and args.supervisor:
         parser.error("--fleet and --supervisor are mutually exclusive")
-    if args.fleet:
-        print("drill --fleet: the fleet scheduler (allocator, fleet, slices "
-              "as CUDA_VISIBLE_DEVICES subsets) is not ported yet: ROADMAP "
-              "A14, third part", file=sys.stderr)
-        return 2
     os.makedirs(args.out, exist_ok=True)
-    if args.supervisor:
+    if args.fleet:
+        from mpi4dl_tpu_torch.resilience.fleet import fleet_scenarios
+
+        scenarios = fleet_scenarios()
+    elif args.supervisor:
         scenarios = supervisor_scenarios()
     else:
         scenarios = default_scenarios(reshape_spec=args.reshape)
@@ -107,7 +111,12 @@ def _cmd_drill(args, parser, full_argv) -> int:
                       toy=args.toy, supervisor=args.supervisor,
                       fleet=args.fleet, argv=list(full_argv))
     try:
-        if args.supervisor:
+        if args.fleet:
+            from mpi4dl_tpu_torch.resilience.fleet import run_fleet_drills
+
+            verdicts = run_fleet_drills(scenarios, args.out, runlog=runlog,
+                                        log=print, device=args.device)
+        elif args.supervisor:
             verdicts = run_supervisor_drills(
                 scenarios, args.out, family=args.family, model=args.model,
                 runlog=runlog, log=print,
@@ -208,7 +217,12 @@ def main(argv=None) -> int:
                         " + degrade-and-continue + backoff) instead of the "
                         "single-leg matrix")
     d.add_argument("--fleet", action="store_true",
-                   help="the FLEET chaos matrix: not ported yet (exits 2)")
+                   help="run the FLEET chaos matrix (multi-tenant scheduler: "
+                        "slice kill, preemption, crash cascade, OOM poison, "
+                        "re-expansion) instead of the single-leg matrix")
+    d.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="--fleet: slices of the visible cards (default; "
+                        "raises with none) or gloo ranks (cpu)")
 
     s = sub.add_parser(
         "supervise",

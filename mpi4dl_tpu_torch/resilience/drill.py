@@ -1,5 +1,6 @@
-"""Fault drill harness (counterpart of ``mpi4dl_tpu/resilience/drill.py``,
-without the fleet scheduler's matrix).
+"""Fault drill harness (counterpart of ``mpi4dl_tpu/resilience/drill.py``;
+the fleet scheduler's matrix lives in :mod:`.fleet`, as in the JAX
+package).
 
 A *drill* is a scripted disaster with a verdict: run a control, inject one
 fault (``MPI4DL_FAULT`` semantics), resume, and CHECK that recovery

@@ -67,6 +67,16 @@ rank that failed first, and every rank's exit code and marker class ride
 the evidence as ``ranks``, so that one rank's OOM is not reported as the
 ``hang`` of its stuck peers.
 
+Fleet hooks (the JAX package's, over rank sets): ``job=`` namespaces every
+attempt as ``workdir/<job>/attempt<N>/`` and stamps ``MPI4DL_FLEET_JOB``
+into every rank (the leg tags its result with ``fleet_job``);
+``on_spawn(proc)`` is called for every rank's process the moment it
+starts, so a drain can SIGTERM the whole rank set; the launcher refuses a
+leg needing more ranks than ``MPI4DL_FLEET_SLICE_DEVICES`` allows.  The
+supervisor polls ``stop()`` between legs: a leg that ends while a stop is
+pending (drained at a step boundary, or SIGTERMed before its ranks
+rendezvoused) ends the run with ``stopped=True`` and no incident.
+
 The supervisor process itself never initializes CUDA: a context on card 0
 would take memory from rank 0's leg.
 
@@ -88,6 +98,7 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
@@ -473,12 +484,23 @@ def _leg_runlog_records(tele_dir: str) -> List[Dict[str, Any]]:
         return []
 
 
+_PORT_LOCK = threading.Lock()
+_PORTS_GIVEN: set = set()
+
+
 def _free_port() -> int:
     """A TCP port on localhost that nothing listens on now (the ranks'
-    rendezvous of one attempt)."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    rendezvous of one attempt), never one this process handed out before:
+    concurrent supervisors of one fleet pick their legs' ports at once, and
+    the OS may offer a port again once its probe socket is closed."""
+    with _PORT_LOCK:
+        while True:
+            with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            if port not in _PORTS_GIVEN:
+                _PORTS_GIVEN.add(port)
+                return port
 
 
 def _tail(path: str, nbytes: int = 16384) -> str:
@@ -504,27 +526,42 @@ def _first_failed(rcs: Mapping[int, int], markers: Mapping[int, Optional[dict]],
 
 def subprocess_leg_launcher(
     family: str, model: str, workdir: str,
-    *, timeout: Optional[float] = None, grace: float = 5.0,
+    *, timeout: Optional[float] = None, grace: float = 5.0, job: str = "",
+    on_spawn: Optional[Callable[[Any], None]] = None,
 ) -> Callable[[Mapping[str, Any], Mapping[str, str], int], LegOutcome]:
     """The real launcher: each attempt is one fresh set of
     ``required_devices(flags, family)`` ranks, each a ``python -m
     mpi4dl_tpu_torch.resilience leg`` process (a fresh CUDA context per
     attempt, so an OOM retry is sound).  Per-attempt artifacts land under
-    ``workdir/attempt<N>/``: the crash markers, the leg result JSON (rank 0's), the telemetry dir (rank 0's
-    RunLog), each rank's stderr (``leg.stderr``, ``leg.stderr.rank<r>``)
-    and flight dump.
+    ``workdir/attempt<N>/`` (``workdir/<job>/attempt<N>/`` for a fleet
+    job): the crash markers, the leg result JSON (rank 0's), the telemetry
+    dir (rank 0's RunLog), each rank's stderr (``leg.stderr``,
+    ``leg.stderr.rank<r>``) and flight dump.
 
     Ranks get the ``env://`` rendezvous (``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``, ``MASTER_ADDR``, a free ``MASTER_PORT``).  When one
-    exits non-zero the others get ``grace`` seconds to exit on their own,
-    then SIGKILL.  Past ``timeout`` every rank is killed and the leg reads
-    as a hang."""
+    ``LOCAL_RANK``, ``MASTER_ADDR``, a free ``MASTER_PORT``) and, for a
+    fleet job, ``MPI4DL_FLEET_JOB``.  ``on_spawn(proc)`` is called with
+    every rank's ``Popen`` as it starts.  When one rank exits non-zero the
+    others get ``grace`` seconds to exit on their own, then SIGKILL; ranks
+    that exit 0 (a drained leg among them) are never killed.  Past
+    ``timeout`` every rank is killed and the leg reads as a hang.  A leg
+    needing more ranks than ``MPI4DL_FLEET_SLICE_DEVICES`` (from
+    ``env_extra``, else this process's environment) raises ``ValueError``:
+    the fleet sized the slice wrong, which is a scheduler bug."""
     from mpi4dl_tpu_torch.obs.flight import FLIGHT_BASENAME, read_flight
     from mpi4dl_tpu_torch.resilience.planner import required_devices
 
     def launch(flags: Mapping[str, Any], env_extra: Mapping[str, str],
                attempt: int) -> LegOutcome:
-        adir = os.path.join(workdir, f"attempt{attempt}")
+        world = required_devices(flags, family)
+        cap = env_extra.get("MPI4DL_FLEET_SLICE_DEVICES",
+                            os.environ.get("MPI4DL_FLEET_SLICE_DEVICES", ""))
+        if cap and world > int(cap):
+            raise ValueError(
+                f"leg of job {job or '-'!r} needs {world} ranks but its fleet "
+                f"slice holds MPI4DL_FLEET_SLICE_DEVICES={cap}")
+        adir = (os.path.join(workdir, job, f"attempt{attempt}") if job
+                else os.path.join(workdir, f"attempt{attempt}"))
         os.makedirs(adir, exist_ok=True)
         marker = os.path.join(adir, "crash_marker.json")
         result_path = os.path.join(adir, "leg_result.json")
@@ -536,7 +573,6 @@ def subprocess_leg_launcher(
             "--family", family, "--model", model, "--result", result_path,
             "--", *flags_to_argv(leg_flags),
         ]
-        world = required_devices(flags, family)
         env = dict(os.environ)
         # Injected faults never leak into retry legs: the supervisor owns
         # single-shot semantics ACROSS processes (the in-process injector
@@ -544,6 +580,8 @@ def subprocess_leg_launcher(
         env.pop("MPI4DL_FAULT", None)
         env.update(env_extra)
         env["MPI4DL_CRASH_MARKER"] = marker
+        if job:
+            env["MPI4DL_FLEET_JOB"] = job
         env.update(WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(_free_port()))
         procs, files = {}, []
@@ -555,6 +593,8 @@ def subprocess_leg_launcher(
                     cmd, env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
                     stdout=errf, stderr=subprocess.STDOUT,
                 )
+                if on_spawn is not None:
+                    on_spawn(procs[r])
             rcs, order = _wait_ranks(procs, timeout, grace)
         finally:
             for p in procs.values():
@@ -633,7 +673,9 @@ def run_leg(family: str, model: str, argv: Sequence[str],
     run the runner entry point, persist rank 0's summary dict for the
     supervisor, and guarantee a crash marker (this rank's) on any failure
     path the supervised loop's own marker did not cover (build and mesh
-    errors before the loop starts)."""
+    errors before the loop starts).  A fleet job's summary carries its
+    ``fleet_job`` tag (``MPI4DL_FLEET_JOB``); a rank that ran on a card
+    names the card on stderr (:func:`card_identity`)."""
     marker = crash_marker_path()
     try:
         from mpi4dl_tpu_torch.benchmarks.common import run
@@ -643,6 +685,16 @@ def run_leg(family: str, model: str, argv: Sequence[str],
         if marker and not os.path.exists(marker):
             write_crash_marker(marker, phase="build", error=e)
         raise
+    card = card_identity()
+    if card is not None:
+        print(f"leg rank {process_rank()}: card {json.dumps(card)}",
+              file=sys.stderr, flush=True)
+    fleet_job = os.environ.get("MPI4DL_FLEET_JOB")
+    if fleet_job:
+        # The scheduler's contamination check verifies that the evidence
+        # stayed in its job's lane.
+        result = dict(result)
+        result["fleet_job"] = fleet_job
     if result_path and process_rank() == 0:
         tmp = f"{result_path}.tmp.{os.getpid()}"
         with open(tmp, "w", encoding="utf-8") as f:
@@ -650,6 +702,23 @@ def run_leg(family: str, model: str, argv: Sequence[str],
                        if _json_safe(v)}, f)
         os.replace(tmp, result_path)
     return 0
+
+
+def card_identity() -> Optional[Dict[str, Any]]:
+    """The card this process computed on: its index among the visible
+    cards, the ``CUDA_VISIBLE_DEVICES`` it saw, its PCI bus and domain
+    numbers (those of ``nvidia-smi``'s ``pci.bus_id``) and UUID; None when
+    this process never initialized CUDA."""
+    import torch
+
+    if not torch.cuda.is_initialized():
+        return None
+    i = torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(i)
+    return {"index": i, "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "name": props.name, "pci_bus_id": getattr(props, "pci_bus_id", None),
+            "pci_domain_id": getattr(props, "pci_domain_id", None),
+            "uuid": str(getattr(props, "uuid", "")) or None}
 
 
 def _json_safe(v: Any) -> bool:
@@ -674,8 +743,9 @@ class SupervisorResult:
     flags: Optional[Dict[str, Any]] = None  # the flags the final leg ran
     env: Dict[str, str] = dataclasses.field(default_factory=dict)
     reason: str = ""  # non-empty on failure
-    # Kept for the reference's record schema; the port has no fleet that
-    # drains a supervisor yet, so it is always False.
+    # True when the fleet's stop hook drained this supervisor (graceful
+    # preemption / migration) — NOT a job failure: the checkpoint is
+    # durable and the scheduler relaunches elsewhere.
     stopped: bool = False
 
 
@@ -687,7 +757,13 @@ class Supervisor:
     ``probe`` is the planner's feasibility probe (``None`` = accept the first ladder
     rung — the planner still records that the probe was skipped).
     ``fault`` applies to attempt 1 ONLY: the drills inject one disaster
-    into the first leg and supervision must recover without it."""
+    into the first leg and supervision must recover without it.
+
+    Fleet hooks: ``job`` namespaces the default launcher's attempts and
+    rides the summary record; ``on_spawn`` goes to the default launcher;
+    ``stop() -> reason`` is polled before each leg and after each leg that
+    did not complete: non-empty, the run ends with ``stopped=True`` (no
+    incident for the drained leg) instead of relaunching."""
 
     def __init__(self, family: str, model: str,
                  flags: Mapping[str, Any], *,
@@ -702,6 +778,9 @@ class Supervisor:
                  backoff_cap: Optional[float] = None,
                  seed: int = 0,
                  fault: str = "",
+                 job: str = "",
+                 stop: Optional[Callable[[], str]] = None,
+                 on_spawn: Optional[Callable[[Any], None]] = None,
                  log: Callable[[str], None] = lambda s: None,
                  _sleep: Callable[[float], None] = time.sleep):
         knobs = supervise_knobs_from_env(max_attempts, backoff_base,
@@ -712,7 +791,8 @@ class Supervisor:
         self.runlog = runlog
         self.launch = (
             launch if launch is not None
-            else subprocess_leg_launcher(family, model, workdir)
+            else subprocess_leg_launcher(family, model, workdir, job=job,
+                                         on_spawn=on_spawn)
         )
         self.probe = probe
         self.budget_gb = budget_gb
@@ -721,6 +801,8 @@ class Supervisor:
         self.backoff_cap = float(knobs["cap"])
         self.seed = seed
         self.fault = fault
+        self.job = job
+        self.stop = stop
         self.log = log
         self._sleep = _sleep
 
@@ -741,7 +823,7 @@ class Supervisor:
                 "supervisor_summary", ok=res.ok, attempts=res.attempts,
                 incidents=len(res.incidents), reason=res.reason,
                 final_flags=dict(res.flags or {}), final_env=dict(res.env),
-                stopped=False, job=None,
+                stopped=res.stopped, job=self.job or None,
             )
         return res
 
@@ -753,18 +835,42 @@ class Supervisor:
         incidents: List[Dict[str, Any]] = []
         per_class: Dict[str, int] = {}
         quarantined: set = set()
+        last_final: Optional[Dict[str, Any]] = None
         attempt = 0
+
+        def stopped(why: str) -> SupervisorResult:
+            # Drained by the fleet: surface the last leg's summary (the
+            # drained leg checkpointed on its way out) and say so — a stop
+            # is a scheduling decision, not a job failure.
+            return self._summary(SupervisorResult(
+                ok=False, attempts=attempt, incidents=incidents,
+                final=last_final, flags=flags, env=env_extra,
+                reason=why, stopped=True,
+            ))
+
         while attempt < self.max_attempts:
+            why = self.stop() if self.stop is not None else ""
+            if why:
+                return stopped(why)
             attempt += 1
             env = dict(env_extra)
             if self.fault and attempt == 1:
                 env["MPI4DL_FAULT"] = self.fault
             out = self.launch(flags, env, attempt)
+            if out.result is not None:
+                last_final = out.result
             if out.rc == 0 and not (out.result or {}).get("preempted"):
                 return self._summary(SupervisorResult(
                     ok=True, attempts=attempt, incidents=incidents,
                     final=out.result, flags=flags, env=env_extra,
                 ))
+            why = self.stop() if self.stop is not None else ""
+            if why:
+                # A leg of a rank set drained at a step boundary exits 0
+                # preempted; one SIGTERMed before its ranks rendezvoused
+                # exits -SIGTERM, its peers killed after the grace.  Either
+                # way the drain ended it: no incident, no relaunch.
+                return stopped(why)
             if out.rc == 0:
                 cls = Classification(
                     "preempted",
@@ -855,7 +961,7 @@ class Supervisor:
             if apply_backoff:
                 delay = backoff_delay(
                     nth, base=self.backoff_base, cap=self.backoff_cap,
-                    seed=self.seed,
+                    seed=self.seed, job=self.job,
                 )
                 incident["backoff_s"] = round(delay, 3)
                 incidents.append(incident)

@@ -235,14 +235,55 @@ def test_supervisor_judge_matches_the_jax_judge(tmp_path, case, monkeypatch):
                             "fresh_start": "fresh_start"}[case]
 
 
-def test_drill_cli_toy_and_fleet(tmp_path, capsys):
+def test_drill_cli_toy_and_fleet(tmp_path, capsys, monkeypatch):
+    """The toy matrix, and ``drill --fleet --device cpu`` on the OOM-poison
+    scenario with fake legs (the poison job's every leg dies of a
+    compile-time OOM, the steady tenant completes): one verified recovery,
+    gloo slices (no ``CUDA_VISIBLE_DEVICES``), exit 0.  Without
+    ``--device cpu`` and with no card it raises."""
+    from mpi4dl_tpu_torch.resilience import fleet
     from mpi4dl_tpu_torch.resilience.__main__ import main
 
     assert main(["drill", "--toy", "--scenarios", "kill_resume,nan_rollback",
                  "--out", str(tmp_path / "out")]) == 0
     assert "2/2 verified recoveries" in capsys.readouterr().out
-    assert main(["drill", "--fleet", "--out", str(tmp_path / "f")]) == 2
-    assert "A14, third part" in capsys.readouterr().err
+    monkeypatch.setenv("MPI4DL_SUPERVISE_BACKOFF", "0")
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    legs = []
+
+    def factory(family, model, workdir, *, job, on_spawn):
+        def launch(flags, env, attempt):
+            legs.append((job, flags.get("device"), env.get("CUDA_VISIBLE_DEVICES")))
+            if job == "poison":
+                return LegOutcome(rc=1, marker={
+                    "phase": "compile", "error_type": "OutOfMemoryError",
+                    "error": "CUDA out of memory. Tried to allocate 2.00 GiB",
+                    "error_bases": ["OutOfMemoryError", "RuntimeError"]})
+            return LegOutcome(rc=0, result={"loss": 1.0, "final_step": 4,
+                                            "start_step": 0, "fleet_job": job})
+        return launch
+
+    monkeypatch.setattr(fleet, "subprocess_leg_launcher", factory)
+    out = tmp_path / "f"
+    assert main(["drill", "--fleet", "--device", "cpu", "--scenarios", "fleet_oom_poison",
+                 "--out", str(out)]) == 0
+    assert "1/1 verified recoveries" in capsys.readouterr().out
+    assert sorted(legs) == [("poison", "cpu", None)] * 2 + [("steady", "cpu", None)]
+    recs = read_runlog(str(next(out.glob("drill-*.jsonl"))))
+    assert [(r["scenario"], r["verdict"]) for r in recs if r["kind"] == "drill"] == [
+        ("fleet_oom_poison", "verified_recovery")]
+    fleet_log = read_runlog(str(out / "fleet_oom_poison" / "fleet.jsonl"))
+    assert fleet_log[-1]["kind"] == "fleet_summary" and fleet_log[-1]["jobs"] == {
+        "poison": "quarantined", "steady": "done"}
+    monkeypatch.setattr(fleet.subprocess, "run", _no_nvidia_smi)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["drill", "--fleet", "--scenarios", "fleet_oom_poison", "--out", str(out)])
+    with pytest.raises(SystemExit):
+        main(["drill", "--fleet", "--supervisor", "--out", str(out)])
+
+
+def _no_nvidia_smi(*a, **k):
+    raise FileNotFoundError("nvidia-smi")
 
 
 # ---------------------------------------------------------------------------
