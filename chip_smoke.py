@@ -90,7 +90,9 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    (tests/test_d2.py); D1 against the single-device step in fp32 over two
    steps, losses within rtol 1e-4 and parameters and running statistics
    within rtol 1e-3 / atol 1e-4 (tests/test_spatial.py).
-10. Pipeline slice: AmoebaNet-D(18, 416), 1024², batch 4 in 4
+10. Pipeline slice: AmoebaNet-D(6, 416) (``ENGINE_DEPTH``, as phases 14,
+   15's GEMS steps and 19: the full depth runs in phases 3, 8 and 20-28),
+   1024², batch 4 in 4
    micro-batches over 4 stages (``--split-size 4 --parts 4``), bf16 over
    fp32 params, SGD lr 1e-3, kernels on, remat off, on the one-process
    stage chain (``parallel/stages.StageChain``): GPipe, then 1F1B, 1
@@ -114,10 +116,11 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    (all_to_all): in float64 with the kernels off, the whole step's
    gradient within 1e-8; in fp32 with the kernels on, each layer call's
    and K2 window's output and VJP within 1e-4.
-14. Kernels on against off: step ms of the single-card AmoebaNet-D(18,
+14. Kernels on against off: step ms of the single-card AmoebaNet-D(6,
    416) 1024² bs1 step and of the GPipe step of phase 10, on, off, on.
-15. GEMS, SP x PP and SP + GEMS slices: AmoebaNet-D(18, 416), 1024²,
-   batch 4, bf16 over fp32 params, SGD lr 1e-3, kernels on, remat off.
+15. GEMS, SP x PP and SP + GEMS slices: AmoebaNet-D(6, 416) for GEMS,
+   (18, 416) for the others, 1024², batch 4, bf16 over fp32 params, SGD lr
+   1e-3, kernels on, remat off.
    GEMS on the one-process stage chain, 4 stages, times 1 x 2 streams x
    parts 2 x 1 image, GPipe then 1F1B; SP x PP (parts 2 of 2 images) and
    SP + GEMS (times 1 x 2 x parts 1 x 2 images) on the 2x2 grid with
@@ -154,12 +157,12 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    chain against a single card with the kernels on the same cells, are
    printed beside them.
 19. Memory levers, each A/B inside this call: the remat levels (none,
-   cell, sqrt, fine) of AmoebaNet-D(18, 416) 2048² on one card; the SP
-   2048² grid with ``MPI4DL_STRIPE_BWD`` 0 / 1 / 0 / 1; and the JAX
+   cell, sqrt, fine) of AmoebaNet-D(6, 416) 2048² on one card; the SP
+   2048² grid at that depth with ``MPI4DL_STRIPE_BWD`` 0 / 1 / 0 / 1; and the JAX
    package's two TPU conv routes, which no layer of the port dispatches,
    against the library conv: ``hstripe_conv2d`` forward and backward at
    the convs of ResNet-110 v2 2048² that JAX's gate would stripe, the
-   phase dx's backward at AmoebaNet's 1024² strided convs (device ms and
+   phase dx's backward at AmoebaNet-D(6, 416)'s 1024² strided convs (device ms and
    the memory each allocates).  Recorded, not asserted.
 20. Data and checkpoints, through the ``lp`` runner (``benchmarks/common.run``)
    at phase 3's model and settings (AmoebaNet-D(18, 416), 1024², bs1,
@@ -299,7 +302,24 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    ``lo`` and ``hi`` launches 80 + 80 K1/K2 a step.  Printed: the fleet
    timeline (``obs report``), the seconds from the drain request to
    ``lo``'s exit and to ``poison``'s quarantine.
-28. The kernels' JSON line, the card line, and last the result line.  K1's
+28. The measuring tools.  (a) The 8192² readiness probe
+   (``benchmarks/readiness_8k.py``, fake tensors on the CPU, no CUDA
+   context; started beside phases 1-3) at the JAX tool's defaults,
+   AmoebaNet-D(18, 416) SP 4x4 x PP 2, gpipe, ``--spatial-until 9``, with
+   ``--parts 2``: at the JAX default of one part neither package builds
+   the step (the SP x PP step hands each stage an equal chunk of the
+   batch).  Checked: both stage roles built, and the step's collectives
+   hold halo exchanges and the stage handoff.  Printed: the collectives a
+   step, each role's GiB, ``fits_h100_80gb``, the seconds, and the card's
+   own memory beside the tool's 80 GB constant (within 1%).  (b) The bench's
+   headline rung as a subprocess (``python -m mpi4dl_tpu_torch.bench
+   --inner``): AmoebaNet-D(18, 416) 1024² bs1, no remat, bf16,
+   ``MPI4DL_PALLAS_CONV=1``, ``BENCH_ITERS`` timed steps.  Checked: its line
+   reads ``platform`` "gpu" and ``0 < mfu <= 1``; its ``flops_per_step``
+   equals the meta-device count of the same step (phase 24's); its stderr
+   reads 80 K1 and 80 K2 launches a step; its ms a step lies within
+   ``BENCH_TOLERANCE`` of phase 3's median step.
+29. The kernels' JSON line, the card line, and last the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -307,10 +327,11 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    and 1F1B steps, the local-DP ResNet step, the GEMS, SP x PP and SP +
    GEMS steps, the multi-level SP and SP x PP steps).
 
-Phases 7-19 run between phases 3 and 4, phases 20-27 after phase 6, each
+Phases 7-19 run between phases 3 and 4, phases 20-28 after phase 6, each
 printing its seconds.  The
-dry runs (meta device, CPU only; phase 24's count too) and the probes of
-phases 25 and 26 run in worker processes from the start, beside phases 1-3.
+dry runs (meta device, CPU only; phase 24's count too), the probes of
+phases 25 and 26 and phase 28's readiness probe run in worker processes
+from the start, beside phases 1-3.
 """
 
 from __future__ import annotations
@@ -618,6 +639,9 @@ def phase_kernels():
     return tot
 
 
+SLICE = {}  # phase 3's median ms a step, for phase 28
+
+
 def phase_slice():
     import torch
 
@@ -657,6 +681,7 @@ def phase_slice():
     launches = dict(hc.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     ips = 3 / sum(times[1:])
+    SLICE["ms"] = 1e3 * statistics.median(times[1:])
     print(f"slice: AmoebaNet-D(18,416) 1024^2 bs1 bf16: {ips:.3f} img/s "
           f"({1e3 * sum(times[1:]) / 3:.1f} ms/step), peak {peak / 2**30:.2f} GiB",
           flush=True)
@@ -1314,7 +1339,13 @@ LDP_PATH = "resnet110_1024_sp_localdp4"
 LDP_BATCH = 4
 
 
-def pp_parts(dev, schedule, depth=18, image=1024, dtype=None, pallas=True,
+# The depth of the engine slices (phases 10, 14, 15's GEMS steps, 19):
+# AmoebaNet-D(6, 416), to keep the script inside its time; the full depth
+# runs in phases 3, 7-8 and 20-27.
+ENGINE_DEPTH = 6
+
+
+def pp_parts(dev, schedule, depth=ENGINE_DEPTH, image=1024, dtype=None, pallas=True,
              filters=416):
     """(model, step, state) of a pipeline step on the one-process stage
     chain: AmoebaNet-D(depth, filters), 1000 classes, batch 4 in 4
@@ -1551,8 +1582,9 @@ def step_ms(parts, x, y, steps=3):
 
 def phase_kernels_ab():
     """Step ms with the kernels on and off (``--pallas-conv``): the
-    single-card AmoebaNet-D(18, 416) 1024² bs1 step and the GPipe pipeline
-    step, on then off then on.  Recorded, not asserted."""
+    single-card AmoebaNet-D(``ENGINE_DEPTH``, 416) 1024² bs1 step and the
+    GPipe pipeline step of phase 10, on then off then on.  Recorded, not
+    asserted."""
     import torch
 
     from mpi4dl_tpu_torch.models import amoebanetd
@@ -1562,16 +1594,17 @@ def phase_kernels_ab():
     t0 = time.perf_counter()
 
     def single(pallas):
-        model = amoebanetd((1, 1024, 1024, 3), num_classes=1000, num_layers=18,
+        model = amoebanetd((1, 1024, 1024, 3), num_classes=1000, num_layers=ENGINE_DEPTH,
                            num_filters=416, device=dev, seed=0)
         opt = Optimizer("sgd", lr=1e-3)
         return model, make_train_step(model, opt, compute_dtype=torch.bfloat16,
                                       pallas_conv=pallas), TrainState.create(model, opt)
 
     for label, build, batch in (
-            ("AmoebaNet-D(18,416) 1024^2 bs1 one card", single, 1),
-            ("AmoebaNet-D(18,416) 1024^2 bs4 GPipe 4x4",
-             lambda pallas: pp_parts(dev, "gpipe", pallas=pallas), PP_BATCH)):
+            (f"AmoebaNet-D({ENGINE_DEPTH},416) 1024^2 bs1 one card", single, 1),
+            (f"AmoebaNet-D({ENGINE_DEPTH},416) 1024^2 bs4 GPipe 4x4",
+             lambda pallas: pp_parts(dev, "gpipe", pallas=pallas),
+             PP_BATCH)):
         x, y = sp_batch(dev, 1024, batch)
         ms = {}
         for pallas in (True, False, True):
@@ -1609,8 +1642,8 @@ def gems_parts(dev, schedule):
     from mpi4dl_tpu_torch.parallel.stages import StageChain
     from mpi4dl_tpu_torch.train import Optimizer
 
-    model = amoebanetd((GEMS_BATCH, GEMS_IMAGE, GEMS_IMAGE, 3), num_classes=1000, num_layers=18,
-                       num_filters=416, device=dev, seed=0)
+    model = amoebanetd((GEMS_BATCH, GEMS_IMAGE, GEMS_IMAGE, 3), num_classes=1000,
+                       num_layers=ENGINE_DEPTH, num_filters=416, device=dev, seed=0)
     part = StagePartition.build(model, GEMS_SPLIT,
                                 (GEMS_BATCH // (2 * GEMS_PARTS), GEMS_IMAGE, GEMS_IMAGE, 3))
     opt = Optimizer("sgd", lr=1e-3)
@@ -2042,17 +2075,17 @@ def conv_route_ab(label, calls, routes):
 
 def phase_memory_levers():
     """The memory levers, each A/B inside this call (median step ms of 2
-    after a warm-up, peak): AmoebaNet-D(18, 416) 2048² bs1 on one card,
-    bf16, kernels on, remat none / cell / sqrt / fine; the SP AmoebaNet
-    2048² grid with ``MPI4DL_STRIPE_BWD`` 0, 1, 0, 1 (one built step, the
+    after a warm-up, peak): AmoebaNet-D(``ENGINE_DEPTH``, 416) 2048² bs1 on
+    one card, bf16, kernels on, remat none / cell / sqrt / fine; the SP
+    grid at that model with ``MPI4DL_STRIPE_BWD`` 0, 1, 0, 1 (one built step, the
     hatch set between measurements).  The JAX package's two TPU conv
     routes, which no layer of the port dispatches, each against the
     library conv on the card (:func:`conv_route_ab`): ``hstripe_conv2d``
     forward and backward at every conv of ResNet-110 v2 2048² that JAX's
     gate would stripe (stride 1, ungrouped, at most 64 channels over at
     least 2^20 pixels, ``layers.py:182-200``), and the phase dx's backward
-    at every strided ungrouped conv of AmoebaNet-D(18, 416) 1024².
-    Recorded, not asserted."""
+    at every strided ungrouped conv of AmoebaNet-D(``ENGINE_DEPTH``, 416)
+    1024².  Recorded, not asserted."""
     import torch
 
     from mpi4dl_tpu_torch.models import amoebanetd, get_resnet_v2
@@ -2065,8 +2098,8 @@ def phase_memory_levers():
 
     def single(image, remat):
         def build():
-            model = amoebanetd((1, image, image, 3), num_classes=1000, num_layers=18,
-                               num_filters=416, device=dev, seed=0)
+            model = amoebanetd((1, image, image, 3), num_classes=1000,
+                               num_layers=ENGINE_DEPTH, num_filters=416, device=dev, seed=0)
             opt = Optimizer("sgd", lr=1e-3)
             return model, make_train_step(model, opt, compute_dtype=torch.bfloat16,
                                           remat=remat, pallas_conv=True), \
@@ -2076,11 +2109,13 @@ def phase_memory_levers():
     x, y = sp_batch(dev, 2048)
     for remat in (False, "cell", "sqrt", "fine"):
         ms, peak = _peak_step(single(2048, remat), x, y)
-        print(f"memory levers: AmoebaNet-D(18,416) 2048^2 bs1 one card remat {remat or 'none'}: "
+        print(f"memory levers: AmoebaNet-D({ENGINE_DEPTH},416) 2048^2 bs1 one card remat "
+              f"{remat or 'none'}: "
               f"{ms:.1f} ms a step, peak {peak:.2f} GiB", flush=True)
-    for mode, ms, peak in _env_ab(lambda: sp_parts(dev, "amoebanet", 2048, 18), x, y,
+    for mode, ms, peak in _env_ab(lambda: sp_parts(dev, "amoebanet", 2048, ENGINE_DEPTH), x, y,
                                   "MPI4DL_STRIPE_BWD", ("0", "1", "0", "1")):
-        print(f"memory levers: SP AmoebaNet 2048^2 2x2 grid MPI4DL_STRIPE_BWD={mode}: "
+        print(f"memory levers: SP AmoebaNet-D({ENGINE_DEPTH},416) 2048^2 2x2 grid "
+              f"MPI4DL_STRIPE_BWD={mode}: "
               f"{ms:.1f} ms a step, peak {peak:.2f} GiB", flush=True)
     del x, y
     torch.cuda.empty_cache()
@@ -2092,10 +2127,10 @@ def phase_memory_levers():
         "hstripe_conv2d": (lambda x, w, s, p: hs.hstripe_conv2d(x, w, *p), "both"),
         "library": (cp._conv_nhwc, "both")})
     strided = conv_calls(
-        lambda meta: amoebanetd((1, 1024, 1024, 3), num_classes=1000, num_layers=18,
-                                num_filters=416, device=meta),
+        lambda meta: amoebanetd((1, 1024, 1024, 3), num_classes=1000,
+                                num_layers=ENGINE_DEPTH, num_filters=416, device=meta),
         1024, lambda xs, kh, kw, sh, sw, g: (sh, sw) != (1, 1) and g == 1)
-    conv_route_ab("AmoebaNet 1024^2 strided convs, backward", strided, {
+    conv_route_ab(f"AmoebaNet-D({ENGINE_DEPTH},416) 1024^2 strided convs, backward", strided, {
         "phase dx": (cp.conv2d_strided_t, "backward"),
         "library": (cp._conv_nhwc, "backward")})
     print(f"memory levers: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3231,6 +3266,84 @@ def phase_fleet():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# The measuring tools' phase.
+READINESS_ARGS = ["--parts", "2"]  # the JAX defaults but for the parts (docstring)
+H100_MEMORY_TOLERANCE = 0.01  # readiness_8k.H100_HBM_GB against the card's own
+BENCH_ITERS = 6  # timed steps of the bench's headline rung
+BENCH_TOLERANCE = 0.25  # its ms a step against phase 3's
+
+
+def readiness_start():
+    """Phase 28 (a): ``readiness_8k`` as a subprocess; ``(process, JSON
+    path, start)``."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_readiness_", suffix=".json")
+    os.close(fd)
+    cmd = [sys.executable, "-m", "mpi4dl_tpu_torch.benchmarks.readiness_8k",
+           *READINESS_ARGS, "--out", path]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, time.perf_counter()
+
+
+def phase_tools(readiness, cost_pred):
+    """The 8192² readiness probe and the bench's headline rung (module
+    docstring, phase 28)."""
+    import torch
+
+    from mpi4dl_tpu_torch.benchmarks.readiness_8k import H100_HBM_GB
+
+    card = card_line()
+    proc, path, t0 = readiness
+    _, err = proc.communicate()
+    secs = time.perf_counter() - t0
+    with open(path) as f:
+        data = json.load(f)
+    os.unlink(path)
+    assert proc.returncode == 0 and data["builds"], (data.get("error"), err[-2000:])
+    roles = data["memory_analysis"]["roles"]
+    assert [r["stage"] for r in roles] == [0, 1], roles
+    scopes = data["collective_scopes"]
+    halos = sum(v["count"] for k, v in scopes.items() if k.startswith("halo_exchange"))
+    assert halos > 0 and scopes.get("stage_handoff", {}).get("count"), scopes
+    own = torch.cuda.get_device_properties(0).total_memory / 2**30
+    assert abs(own / H100_HBM_GB - 1) <= H100_MEMORY_TOLERANCE, (own, H100_HBM_GB)
+    print(f"tools: readiness_8k {' '.join(READINESS_ARGS)}: built in "
+          f"{data['build_seconds']} s ({secs:.1f} s after its start); collectives a step "
+          f"{json.dumps(data['collectives_per_step'])} ({data['collective_total_gb']} GB; "
+          f"halo exchanges {halos}, stage handoffs {scopes['stage_handoff']['count']}); "
+          f"per-role peak {[(r['rank'], r['peak_gb']) for r in roles]} GiB, largest "
+          f"{data['value']} GiB, fits_h100_80gb {data['fits_h100_80gb']} (headroom "
+          f"{data['headroom_h100_gb']} GiB; the card's own {own:.3f} GiB, the tool's "
+          f"{H100_HBM_GB:.3f}); {card}", flush=True)
+
+    torch.cuda.empty_cache()  # the rung is a process of its own
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi4dl_tpu_torch.bench", "--inner", "gpu", "1024", "18",
+         "416", "1", str(BENCH_ITERS), "1", "none", "1", "amoeba"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        env=dict(os.environ, MPI4DL_PALLAS_CONV="1"), timeout=600)
+    secs = time.perf_counter() - t
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    m = re.search(r"K1/K2 launches a step: K1 (\S+) K2 (\S+)", proc.stderr)
+    assert m and float(m.group(1)) == 80 and float(m.group(2)) == 80, proc.stderr[-2000:]
+    assert line["platform"] == "gpu" and 0 < line["mfu"] <= 1, line
+    assert line["flops_per_step"] == cost_pred.flops, (line["flops_per_step"], cost_pred.flops)
+    ratio = line["ms_per_step"] / SLICE["ms"]
+    print(f"tools: bench headline rung: {line['value']} img/s, {line['ms_per_step']} ms a "
+          f"step ({line['timing_mode']}, {line['iters']} steps; phase 3 "
+          f"{SLICE['ms']:.1f} ms, ratio {ratio:.3f}), mfu {line['mfu']}, "
+          f"{line['flops_per_step']:.0f} FLOP a step (the dry run's), K1 {m.group(1)} K2 "
+          f"{m.group(2)} launches a step, vs_baseline {line['vs_baseline']}, peak "
+          f"{line['peak_memory_gib']} GiB; the rung's process {secs:.1f} s; "
+          f"{line['device_kind']}", flush=True)
+    assert abs(ratio - 1) <= BENCH_TOLERANCE, ratio
+
+
 def kernel_entry(name, source, replaces, launches, t, library_ms, peak_flops):
     t_bytes = t["bytes"] / HBM_BYTES_PER_S
     t_ops = t["flops"] / peak_flops
@@ -3275,6 +3388,7 @@ def main() -> int:
         cost_dry = pool.submit(runner_dry_cost)
         probes = [probe_start(DATA_IMAGE), probe_start(SUP_OOM_IMAGE)]
         attributed = probe_start(DATA_IMAGE, ["--attribute"])
+        readiness = readiness_start()
         secs = _build.build_kernels(verbose=True)
         card = card_line()
         print(f"build: {secs:.1f} s on {card}", flush=True)
@@ -3322,6 +3436,7 @@ def main() -> int:
     timed(phase_supervisor, probes)
     timed(phase_instruments, tot, attributed)
     timed(phase_fleet)
+    timed(phase_tools, readiness, cost_pred)
     if args.profile:
         profile_steps(args.profile)
     main_sp = "amoebanet_2048_sp_d2"

@@ -122,6 +122,16 @@ def resolve_spatial_until(cfg, n_cells: int, in_shape, say=print):
     return clamped
 
 
+def level_ctxs(cfg, parts, tiles=None) -> list:
+    """The SpatialCtx of each level of the chain ``parts`` with the runner's
+    settings (slicing, cross-tile BatchNorm, D2, the kernels)."""
+    return spatial_levels_for(
+        cfg.slice_method, parts, tiles=tiles, bn_cross_tile=cfg.bn_cross_tile,
+        d2_mode=cfg.halo_d2,
+        d2_max_fused=cfg.fused_layers if cfg.fused_layers > 0 else None,
+        use_pallas_conv=resolve_pallas_conv(cfg.pallas_conv))
+
+
 def spatial_levels(cfg, n_cells: int, in_shape, tiles=None, say=print):
     """``[(stop_cell, SpatialCtx)]`` of the spatial region
     (``benchmarks/common.py:78-143``): level ``i`` covers pipeline split
@@ -143,11 +153,7 @@ def spatial_levels(cfg, n_cells: int, in_shape, tiles=None, say=print):
             f"split(s); using {parts[:k]} (raise --spatial-size and --split-size to "
             "use the full chain)", flush=True)
     parts = (parts + [parts[-1]] * k)[:k]
-    ctxs = spatial_levels_for(
-        cfg.slice_method, parts, tiles=tiles, bn_cross_tile=cfg.bn_cross_tile,
-        d2_mode=cfg.halo_d2,
-        d2_max_fused=cfg.fused_layers if cfg.fused_layers > 0 else None,
-        use_pallas_conv=resolve_pallas_conv(cfg.pallas_conv))
+    ctxs = level_ctxs(cfg, parts, tiles)
     levels = []
     for i in range(k):
         stop = min(ranges[i][1], n_cells - 1)
@@ -167,11 +173,13 @@ def spatial_levels(cfg, n_cells: int, in_shape, tiles=None, say=print):
     return levels
 
 
-def _build(cfg, family: str, dev, mesh, say, quant=None):
+def _build(cfg, family: str, dev, mesh, say, quant=None, levels=None):
     """(step, state, notes, tail cells) of the family at ``cfg`` on this
     rank; the tail cells are those whose replicas the tile ranks must agree
     on (None outside the spatial families).  ``quant``: the resolved
-    quantization policy."""
+    quantization policy.  ``levels(mdl, tiles)``: the spatial families'
+    ``[(stop_cell, SpatialCtx)]`` chain in place of :func:`spatial_levels`
+    (the readiness tool's even split of the region over a square chain)."""
     from mpi4dl_tpu_torch.parallel.gems import gems_local_stages, make_gems_train_step
     from mpi4dl_tpu_torch.parallel.partition import StagePartition
     from mpi4dl_tpu_torch.parallel.pipeline import (
@@ -224,7 +232,8 @@ def _build(cfg, family: str, dev, mesh, say, quant=None):
         # The stripe-wise backward is dispatched off the hatch, read at each
         # layer run (benchmarks/common.py:159-168).
         os.environ["MPI4DL_STRIPE_BWD"] = "1"
-    levels = spatial_levels(cfg, len(mdl.cells), mdl.in_shape, mesh.tiles, say)
+    levels = (spatial_levels(cfg, len(mdl.cells), mdl.in_shape, mesh.tiles, say)
+              if levels is None else levels(mdl, mesh.tiles))
     sp, su = levels[0][1], levels[-1][0]
     mdl.spatial_until = su
     junction = "batch_split" if cfg.local_dp_lp > 1 else "gather"

@@ -46,9 +46,20 @@ must sit on its slice's card r, checked by PCI bus id (and domain and
 UUID) against the same identity of each card as a process that sees all
 of them names it (``physical_cards``).
 
+In the crash cascade every job's retry legs must restore the step-2
+checkpoint (``RETRY_RESTORES``): the boundary save lands just before the
+injected ``OSError``, and a retry that restores an older step (or nothing)
+lost it.  The scenario's row carries each leg's evidence (``legs``: the
+steps it saved, the step it restored, and how it ended: the incident's
+class, the crash marker's phase and step, each rank's exit code, seconds
+and whether the launcher killed it).  The drill's own verdict stays the
+JAX package's.
+
 ``--device cpu`` rehearses part 1 at the JAX geometry itself (pool 8,
 ``keeper`` included, one thread a rank) and part 2 at ``REHEARSAL_FLAGS``.
-A caller in Python picks parts with ``main(argv, parts=("small",))``.
+``--scenarios NAME ...`` runs only those (``fleet_preempt_storm_full`` is
+part 2's); a caller in Python picks parts with ``main(argv,
+parts=("small",))``.
 
 On cards the first line is each card's name and power limit; the last
 line is one JSON object with each scenario's verdict and seconds, the
@@ -90,6 +101,10 @@ CARD_MAP = {
                          "fault": {"nomad": STRAGGLE}},
 }
 PARTS = ("small", "full")
+# scenario -> the checkpoint step every retry leg of every job must restore:
+# in the crash cascade the step-2 boundary save lands just before the
+# injected ``OSError``, so a retry that restores anything older lost it.
+RETRY_RESTORES = {"fleet_crash_cascade": 2}
 _CARD = re.compile(r"^leg rank (\d+): card (\{.*\})$", re.M)
 
 
@@ -233,6 +248,71 @@ def drains(wd, timeline):
     return out
 
 
+def leg_evidence(swd) -> dict:
+    """Each job's legs in order (launch, then attempt): ``attempt``, the
+    steps of its ``checkpoint`` records (the saves rank 0 saw published),
+    ``restored`` (the step of its ``restore`` record; None when it restored
+    nothing) and ``incident``, the supervisor's record of how the leg ended
+    (class, crash marker phase and step, each rank's exit), None for a leg
+    that completed."""
+    from mpi4dl_tpu_torch.obs import read_runlog
+
+    def records(d):
+        return [x for f in (sorted(os.listdir(d)) if os.path.isdir(d) else [])
+                if f.endswith(".jsonl") for x in read_runlog(os.path.join(d, f))]
+
+    out = {}
+    legs = os.path.join(swd, "legs")
+    for launch in sorted(os.listdir(legs)) if os.path.isdir(legs) else []:
+        for job in sorted(os.listdir(os.path.join(legs, launch))):
+            n = sum(1 for rows in out.get(job, []) if rows["attempt"] == 1) + 1
+            sup =os.path.join(swd, "jobs", job, f"supervisor{n:02d}.jsonl")
+            incidents = {r.get("attempt"): r for r in
+                         (read_runlog(sup) if os.path.exists(sup) else [])
+                         if r["kind"] == "supervisor"}
+            jdir = os.path.join(legs, launch, job)
+            for attempt in sorted(os.listdir(jdir), key=lambda a: int(a[len("attempt"):])):
+                k = int(attempt[len("attempt"):])
+                recs = records(os.path.join(jdir, attempt, "tele"))
+                inc = incidents.get(k)
+                ev = (inc or {}).get("evidence", {})
+                out.setdefault(job, []).append({
+                    "launch": launch, "attempt": k,
+                    "saved": [x.get("gstep") for x in recs if x["kind"] == "checkpoint"],
+                    "restored": next((x.get("step_id") for x in recs
+                                      if x["kind"] == "restore"), None),
+                    "incident": None if inc is None else {
+                        "class": inc.get("failure_class"),
+                        "marker_phase": ev.get("marker_phase"),
+                        "marker_gstep": ev.get("marker_gstep"),
+                        "ranks": ev.get("ranks")}})
+    return out
+
+
+def retry_check(row, swd, want: int, jobs) -> str:
+    """Adds ``legs`` (:func:`leg_evidence`) and ``retry_restores`` (each
+    job's retry legs' restored steps) to ``row``; returns what is wrong
+    (empty when every job of ``jobs`` has a retry and each restored step
+    ``want``)."""
+    row["legs"] = leg_evidence(swd)
+    row["retry_restores"] = {j: [leg["restored"] for leg in row["legs"].get(j, [])
+                                 if leg["attempt"] > 1] for j in jobs}
+    if all(steps and all(s == want for s in steps)
+           for steps in row["retry_restores"].values()):
+        return ""
+    return f"every retry must restore step {want}: {row['retry_restores']}; legs {row['legs']}"
+
+
+def _ended(incident) -> str:
+    if incident is None:
+        return "done"
+    ranks = ", ".join(f"r{x['rank']} rc {x['rc']} at {x.get('exit_s')} s"
+                      + (" killed" if x.get("killed") else "")
+                      for x in incident.get("ranks") or [])
+    return (f"{incident['class']} (crash marker: phase {incident['marker_phase']}, step "
+            f"{incident['marker_gstep']}; {ranks})")
+
+
 def run_part(name, scenarios, args, cards) -> dict:
     from mpi4dl_tpu_torch.obs import read_runlog
     from mpi4dl_tpu_torch.resilience.fleet import run_fleet_scenario
@@ -259,6 +339,10 @@ def run_part(name, scenarios, args, cards) -> dict:
                             for j in sc.verify_loss if f"control_loss_{j}" in v.details},
                "reason": v.details.get("reason") or v.details.get("error")
                or v.details.get("problems")}
+        if sc.name in RETRY_RESTORES:
+            problem = retry_check(row, swd, RETRY_RESTORES[sc.name], sc.expect_done)
+            if problem:
+                row["passed"], row["reason"] = False, problem
         if cards is not None:
             row["placement"] = card_placement(timeline, cards)
             row["passed"] = (row["passed"] and not row["placement"]["wrong"]
@@ -266,6 +350,12 @@ def run_part(name, scenarios, args, cards) -> dict:
         rows[sc.name] = row
         print(f"{name}: {sc.name}: {v.kind} in {secs:.1f} s; drains {row['drains']}; "
               f"relaunches {row['relaunches']}; loss gap {row['loss_gap']}"
+              + (f"; retries restored {row['retry_restores']}; legs "
+                 + "; ".join(f"{j} {leg['launch']}/attempt{leg['attempt']}: saved "
+                             f"{leg['saved']}, restored {leg['restored']}, ended "
+                             f"{_ended(leg['incident'])}"
+                             for j, legs in row["legs"].items() for leg in legs)
+                 if "retry_restores" in row else "")
               + (f"; placement {row['placement']}" if cards is not None else "")
               + ("" if v.passed else f"; {row['reason']}"), flush=True)
     return {"ok": all(r["passed"] for r in rows.values()), "scenarios": rows}
@@ -275,6 +365,9 @@ def main(argv=None, parts=PARTS) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workdir", required=True)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--scenarios", nargs="+", default=None, metavar="NAME",
+                    help="run only these scenarios (the full-width one is "
+                         "fleet_preempt_storm_full); a part with none is skipped")
     args = ap.parse_args(argv)
     os.makedirs(args.workdir, exist_ok=True)
     cards = None
@@ -297,6 +390,10 @@ def main(argv=None, parts=PARTS) -> int:
             scs = card_scenarios() if args.device == "cuda" else fleet_scenarios()
         else:
             scs = [full_scenario(FULL_FLAGS if args.device == "cuda" else REHEARSAL_FLAGS)]
+        if args.scenarios is not None:
+            scs = [sc for sc in scs if sc.name in args.scenarios]
+            if not scs:
+                continue
         result[part] = run_part(part, scs, args, cards)
         result[part]["s"] = round(time.perf_counter() - t0, 1)
         print(f"part {part}: {'held' if result[part]['ok'] else 'FAILED'} in "

@@ -125,7 +125,8 @@ def _fake_module_moves(mode):
 
 
 def probe_role(cfg, family: str, rank: int = 0, kernels: str = "card",
-               real: bool = False, instruments: bool = False) -> Dict[str, Any]:
+               real: bool = False, instruments: bool = False,
+               collectives: bool = False, levels=None) -> Dict[str, Any]:
     """Peak bytes of one training step of ``family`` at ``cfg`` on rank
     ``rank`` of the runner's mesh, in this process: ``{"rank", "peak_bytes",
     "by_category"}``.  Ranks > 1 join the ``fake`` process group for the
@@ -134,13 +135,19 @@ def probe_role(cfg, family: str, rank: int = 0, kernels: str = "card",
     ``instruments``: the step also runs under ``obs.costs.counting`` (FLOPs
     by scope, the recorded collectives) with the tracker attributing its
     peak by scope, and the role adds ``hbm``, ``timeline``, ``overlap``,
-    ``collectives`` and ``collective_records`` (:func:`instrument_role`)."""
+    ``collectives`` and ``collective_records`` (:func:`instrument_role`).
+    ``collectives`` alone records the step's collectives and adds
+    ``collectives`` (per class) and ``collective_scopes`` (per scope path).
+    ``levels``: the spatial chain in place of the runner's (``_build``)."""
     import torch
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from mpi4dl_tpu_torch.benchmarks.common import _build
     from mpi4dl_tpu_torch.mesh import build_process_mesh
+    from mpi4dl_tpu_torch.obs.comm_stats import (
+        collective_stats, recording_collectives, scope_collectives,
+    )
     from mpi4dl_tpu_torch.obs.costs import counting
     from mpi4dl_tpu_torch.obs.hbm import named_tensors, peak_tracker
     from mpi4dl_tpu_torch.ops import flash_attention, halo_conv
@@ -169,7 +176,7 @@ def probe_role(cfg, family: str, rank: int = 0, kernels: str = "card",
             mesh = build_process_mesh(spec) if world > 1 else None
             step, state, _, _ = _build(cfg, "lp" if family == "single" else family, dev,
                                        mesh, lambda *a, **k: None,
-                                       QuantPolicy.resolve(cfg.quant_collectives))
+                                       QuantPolicy.resolve(cfg.quant_collectives), levels)
             batch = cfg.batch_size * spec.data
             x = torch.zeros((batch, cfg.image_size, cfg.image_size, 3), dtype=torch.float32)
             y = torch.zeros((batch,), dtype=torch.int64)
@@ -177,6 +184,8 @@ def probe_role(cfg, family: str, rank: int = 0, kernels: str = "card",
             tracker.label_external(named_tensors(state, "state") + [("x", x), ("y", y)])
             with contextlib.ExitStack() as inner:
                 cost = inner.enter_context(counting()) if instruments else None
+                records = (inner.enter_context(recording_collectives())
+                           if collectives and not instruments else None)
                 inner.enter_context(tracker)
                 step(state, x, y)
             snap = tracker.get_tracker_snapshot("peak")
@@ -197,6 +206,10 @@ def probe_role(cfg, family: str, rank: int = 0, kernels: str = "card",
                            if k != "Total"}}
     if instruments:
         out.update(instrument_role(cfg, family, breakdown, cost, out["peak_bytes"]))
+        records = cost["collective_records"]
+    if collectives:
+        out.update(collectives=collective_stats(records),
+                   collective_scopes=scope_collectives(records))
     return out
 
 

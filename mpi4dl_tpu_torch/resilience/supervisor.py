@@ -55,9 +55,10 @@ evidence, policy, attempt, config delta), the JAX package's schema, which
 Legs are rank sets (the port's own point: a JAX leg is one process).
 :func:`subprocess_leg_launcher` starts ``required_devices(flags, family)``
 processes of ``python -m mpi4dl_tpu_torch.resilience leg`` itself, with
-``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and a free
-``MASTER_PORT`` chosen for each attempt (the ``env://`` rendezvous of
-``mesh.initialize_distributed``), not through ``torchrun``, which folds
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and the
+``MASTER_PORT`` of a rendezvous store this process serves for each attempt
+(the ``env://`` rendezvous of ``mesh.initialize_distributed``, every rank
+a client of the store), not through ``torchrun``, which folds
 every rank's exit status into its own: the classifier needs the real one
 (82 for a watchdog escalation, −SIGKILL, −SIGTERM).  When a rank exits
 non-zero, the launcher SIGKILLs the others after a short grace (never
@@ -95,10 +96,8 @@ import json
 import os
 import random
 import signal
-import socket
 import subprocess
 import sys
-import threading
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
@@ -484,23 +483,21 @@ def _leg_runlog_records(tele_dir: str) -> List[Dict[str, Any]]:
         return []
 
 
-_PORT_LOCK = threading.Lock()
-_PORTS_GIVEN: set = set()
+def _leg_store(world: int):
+    """The rendezvous store of one leg, served by this process: the OS
+    binds its port, and this process holds it from before the ranks start
+    until the leg ends.  The ranks join it as clients
+    (``TORCHELASTIC_USE_AGENT_STORE``, as ``torchrun``'s agent serves its
+    workers).  A port that is only probed and released can be taken by
+    another process before rank 0 binds it (the fleet starts its jobs'
+    legs together): rank 0 then fails at the rendezvous, before the leg
+    saved anything, and the retry trains from step 0."""
+    import datetime
 
+    from torch.distributed import TCPStore
 
-def _free_port() -> int:
-    """A TCP port on localhost that nothing listens on now (the ranks'
-    rendezvous of one attempt), never one this process handed out before:
-    concurrent supervisors of one fleet pick their legs' ports at once, and
-    the OS may offer a port again once its probe socket is closed."""
-    with _PORT_LOCK:
-        while True:
-            with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-                s.bind(("127.0.0.1", 0))
-                port = s.getsockname()[1]
-            if port not in _PORTS_GIVEN:
-                _PORTS_GIVEN.add(port)
-                return port
+    return TCPStore("127.0.0.1", 0, world_size=world, is_master=True,
+                    wait_for_workers=False, timeout=datetime.timedelta(seconds=300))
 
 
 def _tail(path: str, nbytes: int = 16384) -> str:
@@ -539,9 +536,10 @@ def subprocess_leg_launcher(
     ``leg.stderr.rank<r>``) and flight dump.
 
     Ranks get the ``env://`` rendezvous (``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``, ``MASTER_ADDR``, a free ``MASTER_PORT``) and, for a
-    fleet job, ``MPI4DL_FLEET_JOB``.  ``on_spawn(proc)`` is called with
-    every rank's ``Popen`` as it starts.  When one rank exits non-zero the
+    ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``: the port of the
+    leg's store, :func:`_leg_store`, which this process holds until the
+    leg ends) and, for a fleet job, ``MPI4DL_FLEET_JOB``.
+    ``on_spawn(proc)`` is called with every rank's ``Popen`` as it starts.  When one rank exits non-zero the
     others get ``grace`` seconds to exit on their own, then SIGKILL; ranks
     that exit 0 (a drained leg among them) are never killed.  Past
     ``timeout`` every rank is killed and the leg reads as a hang.  A leg
@@ -582,8 +580,10 @@ def subprocess_leg_launcher(
         env["MPI4DL_CRASH_MARKER"] = marker
         if job:
             env["MPI4DL_FLEET_JOB"] = job
+        store = _leg_store(world)
         env.update(WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(_free_port()))
+                   MASTER_PORT=str(store.port), TORCHELASTIC_USE_AGENT_STORE="True",
+                   TORCHELASTIC_RESTART_COUNT="0")
         procs, files = {}, []
         try:
             for r in range(world):
@@ -595,7 +595,7 @@ def subprocess_leg_launcher(
                 )
                 if on_spawn is not None:
                     on_spawn(procs[r])
-            rcs, order = _wait_ranks(procs, timeout, grace)
+            rcs, order, exits = _wait_ranks(procs, timeout, grace)
         finally:
             for p in procs.values():
                 if p.poll() is None:
@@ -603,6 +603,7 @@ def subprocess_leg_launcher(
                     p.wait()
             for f in files:
                 f.close()
+            del store
         markers = {r: read_crash_marker(rank_path(marker, r)) for r in procs}
         hung = any(rc is None for rc in rcs.values())
         failed = _first_failed(rcs, markers, order)
@@ -614,7 +615,8 @@ def subprocess_leg_launcher(
             result = None
         ranks = [{"rank": r, "rc": rcs[r],
                   "marker_class": (classify_failure(rcs[r], markers[r]).failure_class
-                                   if markers[r] else None)}
+                                   if markers[r] else None),
+                  **exits[r]}
                  for r in sorted(procs)]
         rc = rcs[failed]
         return LegOutcome(
@@ -632,19 +634,28 @@ def subprocess_leg_launcher(
 
 def _wait_ranks(procs: Dict[int, subprocess.Popen], timeout: Optional[float],
                 grace: float):
-    """Wait for every rank; returns ``(rcs, order)``: each rank's exit code
-    (None: killed at the timeout) and the ranks that exited non-zero first,
-    all found at one poll.  After the first non-zero exit the others get
-    ``grace`` seconds, then SIGKILL (their codes then read −9)."""
-    deadline = None if timeout is None else time.monotonic() + timeout
+    """Wait for every rank; returns ``(rcs, order, exits)``: each rank's
+    exit code (None: killed at the timeout), the ranks that exited non-zero
+    first, all found at one poll, and each rank's ``{"exit_s": seconds from
+    the wait's start to its exit (to 0.05 s), "killed": bool}``.  After the
+    first non-zero exit the others get ``grace`` seconds, then SIGKILL
+    (their codes then read −9)."""
+    t0 = time.monotonic()
+    deadline = None if timeout is None else t0 + timeout
     kill_at = None
     rcs: Dict[int, Optional[int]] = {}
+    exits: Dict[int, Dict[str, Any]] = {}
     order: List[int] = []
+
+    def seen(r: int, rc: Optional[int], killed: bool) -> None:
+        rcs[r] = rc
+        exits[r] = {"exit_s": round(time.monotonic() - t0, 2), "killed": killed}
+
     while len(rcs) < len(procs):
         now = time.monotonic()
         for r, p in procs.items():
             if r not in rcs and p.poll() is not None:
-                rcs[r] = p.returncode
+                seen(r, p.returncode, False)
                 if p.returncode != 0 and not order:
                     order = [q for q in procs if procs[q].poll() not in (None, 0)]
                     kill_at = now + grace
@@ -655,16 +666,16 @@ def _wait_ranks(procs: Dict[int, subprocess.Popen], timeout: Optional[float],
                 if r not in rcs:
                     p.kill()
                     p.wait()
-                    rcs[r] = None
+                    seen(r, None, True)
             break
         if kill_at is not None and now > kill_at:
             for r, p in procs.items():
                 if r not in rcs:
                     p.kill()
-                    rcs[r] = p.wait()
+                    seen(r, p.wait(), True)
             break
         time.sleep(0.05)
-    return rcs, order
+    return rcs, order, exits
 
 
 def run_leg(family: str, model: str, argv: Sequence[str],

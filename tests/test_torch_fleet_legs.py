@@ -120,12 +120,18 @@ def test_stop_raced_against_a_real_spawn_ends_stopped_without_a_hang(tmp_path):
 @pytest.mark.slow
 def test_fleet_crash_cascade_end_to_end(tmp_path):
     """Real rank sets at the JAX geometry (two 2x2 jobs, pool 8, gloo): both
-    tenants hit the same transient-I/O fault, both recover, and their retry
-    backoffs are de-synchronized by the per-(job, attempt) jitter."""
+    tenants hit the same transient-I/O fault, both recover from the step-2
+    checkpoint saved just before it, and their retry backoffs are
+    de-synchronized by the per-(job, attempt) jitter."""
+    from mpi4dl_tpu_torch.benchmarks.fleet_check import retry_check
+
     sc = next(s for s in fleet_scenarios() if s.name == "fleet_crash_cascade")
     v = tf.run_fleet_scenario(sc, str(tmp_path), log=print, device="cpu")
     assert v.passed, (v.kind, v.details)
     assert v.kind == "verified_recovery"
+    row = {}
+    assert retry_check(row, str(tmp_path / sc.name), 2, sc.expect_done) == ""
+    assert row["retry_restores"] == {"alpha": [2], "beta": [2]}
     seqs = v.details["backoff_s"]
     assert seqs["alpha"] and seqs["beta"]
     assert seqs["alpha"] != seqs["beta"]
