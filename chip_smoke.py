@@ -13,6 +13,18 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    kernel (K3's forward, its backward's dK/dV and dQ passes) issues
    tensor-core MMAs (HMMA) and, where its copies are 8 or 16 bytes,
    cp.async (LDGSTS).
+1b. Analysis (``phase_analysis``, after phase 3 and the dry runs): (a)
+   the port's source-level gate, ``python -m mpi4dl_tpu_torch.analysis
+   --json``, in a subprocess on this tree: exit 0 and zero findings; the
+   files scanned, the rules and the seconds printed.  (b) Every row of the
+   kernel registry (``ops/kernel_registry.py``) on the card: its kernel
+   launched at least once and held against its plain version with phase
+   2's and phase 4's tolerances (conv fp32 within 8 scaled ULP, bf16 one bf16
+   rounding of the output and of the statistics; K3 m and o/l within
+   1e-5·max(1, max|ref|), l rtol 1e-5, masked rows exact; K3's backward
+   rtol 1e-4 / atol 1e-5·max|ref|).  (c) At the end of the run, every
+   kernel that launched in it (``TALLY`` of ``ops/halo_conv.py`` and
+   ``ops/flash_attention.py``) is enrolled by a registry row.
 2. Kernels: hold K1 (halo conv), K2 (fused relu→conv→BN-stats) and K1 as
    the dx of K2's backward against their plain PyTorch versions on the card,
    at the eight shapes of the main path (bf16) and at one fp32 ragged-tail
@@ -319,7 +331,8 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    equals the meta-device count of the same step (phase 24's); its stderr
    reads 80 K1 and 80 K2 launches a step; its ms a step lies within
    ``BENCH_TOLERANCE`` of phase 3's median step.
-29. The kernels' JSON line, the card line, and last the result line.  K1's
+29. Phase 1b (c), then the kernels' JSON line, the card line, and last
+   the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
    step for the times); ``by_path`` gives per-step launches and times of
@@ -550,6 +563,61 @@ def call_cost(x, w, y_shape, stats: bool):
     nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
               + n * h * wd * cout * x.element_size() + (8 * cout if stats else 0))
     return nbytes, 2 * n * h * wd * cin * cout * kh * kw
+
+
+def phase_analysis():
+    """(a) The source-level gate in a subprocess; (b) every kernel registry
+    row on the card against its plain version.  Returns the seconds."""
+    import torch
+
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+    from mpi4dl_tpu_torch.ops import kernel_registry as kr
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi4dl_tpu_torch.analysis", "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=300)
+    gate_s = time.perf_counter() - t0
+    assert proc.returncode == 0, f"analysis gate exit {proc.returncode}:\n{proc.stdout}{proc.stderr}"
+    report = json.loads(proc.stdout)
+    assert report["violations"] == [] and report["stale_baseline"] == [], report
+    print(f"analysis: gate {report['files']} files, {len(report['rules'])} rules "
+          f"({', '.join(report['rules'])}), 0 findings, {gate_s:.2f} s", flush=True)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t1 = time.perf_counter()
+    counts = {**hc.LAUNCHES, **fa.LAUNCHES}
+    for case in kr.REGISTRY:
+        before = counts[case.kernel]
+        err = case.run("cuda")
+        torch.cuda.synchronize()
+        counts = {**hc.LAUNCHES, **fa.LAUNCHES}
+        assert counts[case.kernel] > before, f"registry {case.name}: no {case.kernel} launch"
+        print(f"analysis: registry {case.name}: {case.kernel} x{counts[case.kernel] - before} "
+              f"max|err| {err:.3g}", flush=True)
+    rows_s = time.perf_counter() - t1
+    secs = time.perf_counter() - t0
+    print(f"analysis: {len(kr.REGISTRY)} registry rows {rows_s:.2f} s; phase {secs:.2f} s",
+          flush=True)
+    return secs
+
+
+def check_enrolled() -> None:
+    """(c) Every kernel that launched in this run is enrolled by a row."""
+    from mpi4dl_tpu_torch.ops import flash_attention as fa
+    from mpi4dl_tpu_torch.ops import halo_conv as hc
+    from mpi4dl_tpu_torch.ops import kernel_registry as kr
+
+    launched = {name: t["launches"] for mod in (hc, fa) for name, t in mod.TALLY.items()
+                if t["launches"]}
+    launched.update({name: n for mod in (hc, fa) for name, n in mod.LAUNCHES.items()
+                     if n and name not in launched})
+    missing = sorted(set(launched) - set(kr.enrolled_kernels()))
+    assert not missing, f"kernels launched but enrolled by no registry row: {missing}"
+    print(f"analysis: launched in this run {launched}, every one enrolled", flush=True)
 
 
 def phase_kernels():
@@ -3402,6 +3470,11 @@ def main() -> int:
               flush=True)
     finally:
         pool.shutdown()
+    # After the dry-run workers: the gate's subprocess then has the host's
+    # cores to itself (it imports torch).
+    t = time.perf_counter()
+    phase_analysis()
+    print(f"phase phase_analysis: {time.perf_counter() - t:.1f} s", flush=True)
     for name, seen in preds.items():
         print(f"dry run: {name}: K2 {seen.counts['halo_conv2d_stats']} K1 "
               f"{seen.counts['halo_conv2d']} launches a step", flush=True)
@@ -3439,6 +3512,7 @@ def main() -> int:
     timed(phase_tools, readiness, cost_pred)
     if args.profile:
         profile_steps(args.profile)
+    check_enrolled()
     main_sp = "amoebanet_2048_sp_d2"
     tot["K1"]["launches"] = tot["K2"]["launches"] = 80
 

@@ -13,9 +13,135 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Environment-hatch registry (counterpart of ``mpi4dl_tpu/config.py:38``)
+#
+# Every ``MPI4DL_*`` environment variable the port reads is declared here,
+# with its effective default and one line of doc.  The port's analyzer
+# (``python -m mpi4dl_tpu_torch.analysis``, rule ``env-hatch``) parses this
+# table from source and holds both directions: a read of an undeclared name
+# is a finding, and so is a declared name that nothing reads.  The README's
+# table of the port's hatches is :func:`hatches_markdown`.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Hatch:
+    """One declared environment hatch."""
+
+    name: str
+    default: str  # the effective default when the variable is unset
+    doc: str
+    internal: bool = False  # plumbing between the port's own processes
+
+
+HATCHES: Dict[str, Hatch] = {
+    h.name: h
+    for h in (
+        Hatch("MPI4DL_SQRT_GROUPS", "0",
+              "Checkpoint groups of remat='sqrt'; 0 = about sqrt(cells) "
+              "(the bench pins 16)."),
+        Hatch("MPI4DL_REMAT_OPS", "0",
+              "1 = a checkpoint per op inside composite cells under any "
+              "outer remat level (the bench retries with it on OOM)."),
+        Hatch("MPI4DL_NO_HSTRIPE", "0",
+              "1 = the striped single-device ResNet branch keeps the library "
+              "conv."),
+        Hatch("MPI4DL_HSTRIPE_RUN", "auto",
+              "Block-level H-striping: 0 = off, 1 = on (no BatchNorm "
+              "warning), auto = on with the warning."),
+        Hatch("MPI4DL_HSTRIPE_EXACT", "0",
+              "1 = striped BatchNorm takes whole-input statistics (the "
+              "striped run and the stripe-wise backward)."),
+        Hatch("MPI4DL_STRIPE_BWD", "0",
+              "Stripe-wise forward and backward of eligible stride-1 blocks "
+              "(ops/stripe_bwd.py): 1 = the spatially sharded blocks, all = "
+              "every eligible block."),
+        Hatch("MPI4DL_STRIPE_BUDGET", str(64 * 1024 * 1024),
+              "Bytes of one stripe's working set in the stripe-wise "
+              "backward; the stripe count follows from it."),
+        Hatch("MPI4DL_PALLAS_CONV", "0",
+              "1 = the bench routes eligible spatial convs through K1/K2."),
+        Hatch("MPI4DL_QUANT_COLLECTIVES", "<unset>",
+              "Quantized-collective policy, over --quant: `off`, one mode "
+              "(`int8`|`fp8`|`int4`) or per class `junction=int4,"
+              "respatial=int8,grad=int8,handoff=int8[,block=N]`."),
+        Hatch("MPI4DL_NO_RESPATIAL_FAST", "0",
+              "1 = level moves take the full gather and slice instead of "
+              "the local slice and the coarsening ring."),
+        Hatch("MPI4DL_FAULT", "<unset>",
+              "Fault injection `<kind>@<step>[:arg]` (nan_loss, nan_batch, "
+              "raise, sigterm, corrupt_ckpt, lost_shard_files, reshape, "
+              "stall_data, oom_compile, oom_step, mesh_shrunk, slow_step, "
+              "io_error)."),
+        Hatch("MPI4DL_FAULT_RANKS", "<unset>",
+              "Comma-list of the process ranks MPI4DL_FAULT fires on; unset "
+              "= every rank."),
+        Hatch("MPI4DL_CKPT_HOST_BYTES", str(1 << 30),
+              "Bytes of copied-but-unwritten checkpoint leaves the "
+              "background writer holds before the training thread waits."),
+        Hatch("MPI4DL_WATCHDOG_SECS", "0",
+              "Step watchdog budget in seconds (0 = off); --watchdog-secs "
+              "overrides."),
+        Hatch("MPI4DL_WATCHDOG_COMPILE_SECS", "10x step budget",
+              "Watchdog budget of a process's first step; "
+              "--watchdog-compile-secs overrides."),
+        Hatch("MPI4DL_WATCHDOG_ESCALATE", "0",
+              "Stall dumps of one step before the watchdog writes a `hang` "
+              "crash marker and ends the leg (0 = never)."),
+        Hatch("MPI4DL_SUPERVISE_MAX_ATTEMPTS", "6",
+              "Elastic supervisor: leg launches before it gives up."),
+        Hatch("MPI4DL_SUPERVISE_BACKOFF", "1.0",
+              "Elastic supervisor: base seconds of the exponential retry "
+              "backoff."),
+        Hatch("MPI4DL_SUPERVISE_BACKOFF_CAP", "30",
+              "Elastic supervisor: ceiling of the backoff in seconds."),
+        Hatch("MPI4DL_QUARANTINE_STEPS", "<unset>",
+              "Comma-list of global steps the supervised loop skips (the "
+              "supervisor's poison-batch exclusion)."),
+        Hatch("MPI4DL_CRASH_MARKER", "<unset>",
+              "Internal: where a supervised leg writes its crash marker.",
+              internal=True),
+        Hatch("MPI4DL_FLEET_DEVICES", "8",
+              "Fleet scheduler: cards in the shared pool."),
+        Hatch("MPI4DL_FLEET_POISON_ATTEMPTS", "2",
+              "Fleet scheduler: failed supervisor runs before a job is "
+              "quarantined as poison."),
+        Hatch("MPI4DL_FLEET_JOB", "<unset>",
+              "Internal: the fleet job a leg belongs to, stamped into its "
+              "result.", internal=True),
+        Hatch("MPI4DL_FLEET_SLICE_DEVICES", "<unset>",
+              "Internal: cards of the fleet slice a leg is pinned to.",
+              internal=True),
+        Hatch("MPI4DL_NO_GUARD", "0",
+              "1 = no anomaly guard (finite-loss check, rollback, "
+              "poison-batch skip)."),
+        Hatch("MPI4DL_GUARD_GRAD_NORM", "0",
+              "Gradient-norm limit of the anomaly guard (0 = off)."),
+        Hatch("MPI4DL_FLIGHT_STEPS", "64",
+              "Steps the flight recorder keeps for its `flight.json` dump."),
+        Hatch("MPI4DL_NO_FLIGHT", "0",
+              "1 = no flight recorder."),
+        Hatch("MPI4DL_METRICS_PORT", "<unset>",
+              "Port of `python -m mpi4dl_tpu_torch.obs metrics --serve`; "
+              "unset = files only."),
+    )
+}
+
+
+def hatches_markdown(include_internal: bool = False) -> str:
+    """The registry as the README's table of the port's hatches."""
+    lines = ["| Hatch | Default | Effect |", "| --- | --- | --- |"]
+    for h in HATCHES.values():
+        if h.internal and not include_internal:
+            continue
+        lines.append(f"| `{h.name}` | `{h.default}` | {h.doc} |")
+    return "\n".join(lines)
 
 
 @dataclasses.dataclass

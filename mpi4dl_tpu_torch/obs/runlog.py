@@ -44,7 +44,7 @@ def _jsonable(obj: Any) -> Any:
     if hasattr(obj, "item"):  # numpy / torch scalars
         try:
             return obj.item()
-        except Exception:  # noqa: BLE001 — falls through to repr() below
+        except Exception:  # noqa: BLE001  # analysis: ok(swallow-except) — repr() below
             pass
     return repr(obj)
 

@@ -78,7 +78,9 @@ def build_kernels(names: Optional[Iterable[str]] = None,
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
         if verbose:
-            print(f"[build] {name}.cu:\n{log.strip()}", flush=True)
+            # The caller asked for ptxas's report on stdout, where
+            # chip_smoke.py's readers find it.
+            print(f"[build] {name}.cu:\n{log.strip()}", flush=True)  # analysis: ok(print-call)
         os.replace(tmp, out)
     return time.perf_counter() - t0
 

@@ -115,8 +115,8 @@ def _tally(name: str, q, k, backward: bool = False) -> None:
 
 def _causal_mask(t_q: int, t_k: int, q_off: int, k_off: int, device) -> torch.Tensor:
     """[Tq, Tk] True where key ``k_off + j`` is visible to query ``q_off + i``."""
-    q_pos = q_off + torch.arange(t_q, device=device)
-    k_pos = k_off + torch.arange(t_k, device=device)
+    q_pos = q_off + torch.arange(t_q, dtype=torch.int64, device=device)
+    k_pos = k_off + torch.arange(t_k, dtype=torch.int64, device=device)
     return q_pos[:, None] >= k_pos[None, :]
 
 

@@ -70,7 +70,7 @@ def _einsum_local(q, k, v, causal: bool, sc) -> torch.Tensor:
     t = q.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * sc, k.float())
     if causal:
-        pos = torch.arange(t, device=q.device)
+        pos = torch.arange(t, dtype=torch.int64, device=q.device)
         s = s.masked_fill(~(pos[:, None] >= pos[None, :]), float("-inf"))
     out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v.float())
     return out.to(q.dtype)
@@ -94,21 +94,22 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return flash_attention_local(q, k, v, causal=causal, scale=sc)
         return _ring_flash(q, k, v, group, n, my, causal, sc)
     # ring.py:116: 1/sqrt(d) in fp32.
-    sc = scale if scale is not None else float(1.0 / torch.tensor(float(d)).sqrt())
+    sc = scale if scale is not None else float(
+        1.0 / torch.tensor(float(d), dtype=torch.float32, device="cpu").sqrt())
     if group is None:
         return _einsum_local(q, k, v, causal, sc)
 
     qf = q.float() * sc
-    q_pos = my * t + torch.arange(t, device=q.device)
-    m = torch.full((b, h, t), float("-inf"), device=q.device)
-    l = torch.zeros((b, h, t), device=q.device)
-    o = torch.zeros((b, h, t, d), device=q.device)
+    q_pos = my * t + torch.arange(t, dtype=torch.int64, device=q.device)
+    m = torch.full((b, h, t), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, t), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, h, t, d), dtype=torch.float32, device=q.device)
     kblk, vblk = k, v
     for hop in range(n):
         src = (my - hop) % n
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kblk.float())
         if causal:
-            k_pos = src * t + torch.arange(t, device=q.device)
+            k_pos = src * t + torch.arange(t, dtype=torch.int64, device=q.device)
             s = s.masked_fill(~(q_pos[:, None] >= k_pos[None, :]), float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
         # exp(-inf - -inf) guard: rows with no valid keys yet keep m = -inf.
@@ -126,9 +127,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _ring_flash(q, k, v, group, n: int, my: int, causal: bool, sc: float):
     b, t, h, d = q.shape
     qf = fold_heads(q)
-    m = torch.full((b * h, t), NEG_INF, device=q.device)
-    l = torch.zeros((b * h, t), device=q.device)
-    o = torch.zeros((b * h, t, d), device=q.device)
+    m = torch.full((b * h, t), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b * h, t), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b * h, t, d), dtype=torch.float32, device=q.device)
     kblk, vblk = k, v
     for hop in range(n):
         src = (my - hop) % n
@@ -163,9 +164,9 @@ def emulated_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int,
     outs = []
     for dev in range(n):
         qf = fold_heads(q[:, dev * tl:(dev + 1) * tl])
-        state = (torch.zeros((b * h, tl, d), device=q.device),
-                 torch.full((b * h, tl), NEG_INF, device=q.device),
-                 torch.zeros((b * h, tl), device=q.device))
+        state = (torch.zeros((b * h, tl, d), dtype=torch.float32, device=q.device),
+                 torch.full((b * h, tl), NEG_INF, dtype=torch.float32, device=q.device),
+                 torch.zeros((b * h, tl), dtype=torch.float32, device=q.device))
         for hop in range(n):
             src = (dev + hop) % n
             blk = block_flash_t(qf, kb[src], vb[src], dev * tl, src * tl, causal, sc)

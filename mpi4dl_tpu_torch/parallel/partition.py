@@ -108,8 +108,9 @@ class StagePartition:
         if any(r1 <= r0 for r0, r1 in ranges):
             raise ValueError(f"{len(model.cells)} cells cannot fill {split_size} stages")
         shape = tuple(microbatch_shape)
-        x = (tuple(torch.empty(s, device="meta") for s in shape)
-             if _is_tuple_shape(shape) else torch.empty(shape, device="meta"))
+        x = (tuple(torch.empty(s, dtype=torch.float32, device="meta") for s in shape)
+             if _is_tuple_shape(shape) else torch.empty(shape, dtype=torch.float32,
+                                                        device="meta"))
         ctx = ApplyCtx(train=False)
         shapes = []
         for r0, r1 in ranges:

@@ -117,7 +117,7 @@ class SPPipeline:
             raise ValueError(f"micro-batch {microbatch} not divisible by junction degree "
                              f"{degree}")
         mb_tail = microbatch // degree
-        x = torch.empty((microbatch, *model.in_shape[1:]), device="meta")
+        x = torch.empty((microbatch, *model.in_shape[1:]), dtype=torch.float32, device="meta")
         for i in range(su):
             x = probe_cell(model.cells[i], x, ApplyCtx(train=False))
         shape = _map(lambda t: (mb_tail, *t.shape[1:]), x)
@@ -169,7 +169,7 @@ def _lineup_order(spp: SPPipeline, S: int, groups: int, folded: bool, n: int):
     ``batch_split``, whose micro-batch ``g`` is every shard's micro-batch
     ``g``, shard after shard (the tail normalises each with its own
     statistics, ``ApplyCtx.bn_shards``)."""
-    idx = torch.arange(n)
+    idx = torch.arange(n, dtype=torch.int64, device="cpu")
     if not (folded and spp.junction == "batch_split" and spp.degree > 1):
         return idx
     d = spp.degree

@@ -191,7 +191,7 @@ def cell_output_shapes(model: CellModel, in_shape) -> List:
     """Each cell's global output shape (a tuple of shapes for a tuple
     state), from one forward of ``model`` on the meta device (build it with
     ``device="meta"``: no memory, no compute)."""
-    x = torch.zeros(in_shape, device="meta")
+    x = torch.zeros(in_shape, dtype=torch.float32, device="meta")
     ctx = ApplyCtx(train=False)
     shapes = []
     for cell in model.cells:

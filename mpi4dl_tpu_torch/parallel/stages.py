@@ -104,7 +104,8 @@ class ProcessGroupStages:
         """The stage this rank runs for GEMS's mirror stream."""
         return self.num_stages - 1 - self.stage
 
-    def exchange_streams(self, streams, mode=None, block=0):
+    # under stage_handoff / cot_handoff (parallel/stage_common.py).
+    def exchange_streams(self, streams, mode=None, block=0):  # analysis: ok(unscoped-collective)
         S = self.num_stages
         ops, recvs = [], []
         for direction in (0, 1):  # forward, then backward
@@ -139,7 +140,9 @@ class ProcessGroupStages:
             out[i][direction][s] = unpack(buf, shape)
         return out
 
-    def swap_mirror(self, send: torch.Tensor, recv: torch.Tensor) -> None:
+    # under gems_mirror / stats_mirror (parallel/gems.py).
+    def swap_mirror(self, send: torch.Tensor,  # analysis: ok(unscoped-collective)
+                    recv: torch.Tensor) -> None:
         """Send ``send`` to the mirror rank (group rank ``S - 1 - stage``)
         and receive its buffer into ``recv``; the middle rank of an odd
         chain is its own mirror and must not call this."""

@@ -221,14 +221,17 @@ class _AllReduceSum(torch.autograd.Function):
     (the transpose of ``psum``)."""
 
     @staticmethod
-    def forward(ctx, group, x):
+    # sum_stats' all-reduce: under its callers' scopes (bn_cross_tile,
+    # stripe_bwd_stats, sp_level{li}).
+    def forward(ctx, group, x):  # analysis: ok(unscoped-collective)
         ctx.group = group
         y = x.clone()
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
         return y
 
     @staticmethod
-    def backward(ctx, g):
+    # its backward: tagged with the forward's scope (obs.scopes).
+    def backward(ctx, g):  # analysis: ok(unscoped-collective)
         g = g.clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
         return None, g
@@ -268,7 +271,8 @@ class _GatherSlice(torch.autograd.Function):
         return full[k * n:(k + 1) * n].contiguous()
 
     @staticmethod
-    def backward(ctx, g):
+    # the junction's backward: tagged with junction_gather (obs.scopes).
+    def backward(ctx, g):  # analysis: ok(unscoped-collective)
         n = g.shape[0]
         full = g.new_zeros((n * ctx.degree, *g.shape[1:]))
         full[ctx.k * n:(ctx.k + 1) * n] = g
@@ -332,7 +336,9 @@ class ProcessGroupTiles:
         aw = self.aw + step * self.rep_w
         return self.ah * self.dev_w + aw if 0 <= aw < self.dev_w else None
 
-    def _p2p_shift(self, x: torch.Tensor, axis: str, step: int) -> torch.Tensor:
+    # under halo_exchange_{axis} (ops/halo.py) or respatial_l{li} (parallel/spatial.py).
+    def _p2p_shift(self, x: torch.Tensor, axis: str,  # analysis: ok(unscoped-collective)
+                   step: int) -> torch.Tensor:
         """Send ``x`` to the tile ``step`` places on, return what the tile
         ``step`` places back sent (zeros at the border).  The send and the
         receive are posted together."""
@@ -363,7 +369,8 @@ class ProcessGroupTiles:
         return tuple(flat.split([s.numel() for s in stats]))
 
     @torch.no_grad()
-    def tile_mean(self, t: torch.Tensor) -> torch.Tensor:
+    # under stripe_bwd_stats (ops/stripe_bwd.py) or the BatchNorm's sp_level{li}.
+    def tile_mean(self, t: torch.Tensor) -> torch.Tensor:  # analysis: ok(unscoped-collective)
         """Mean over the ranks of this rank's value."""
         t = t.clone()
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
@@ -618,7 +625,8 @@ class _LinePlan:
                           self.src.group, tag)
 
 
-def _wait_all(ops) -> None:
+# the gather of a level move: under respatial_l{li} (parallel/spatial.py).
+def _wait_all(ops) -> None:  # analysis: ok(unscoped-collective)
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -679,7 +687,7 @@ def _grid_respatial_wire(t, src, dst, mode, block, cls):
             k = g_from // g_to
             # The rows of the tiles whose position along d is not the
             # first of their ring group.
-            idx = torch.arange(g_from, device=t.device) % k != 0
+            idx = torch.arange(g_from, dtype=torch.int64, device=t.device) % k != 0
             mask = (idx.view(g_from, 1) if d == 0 else idx.view(1, g_from)).expand(gh, gw)
             mask = mask.reshape(-1).repeat_interleave(n).view(-1, *([1] * (t.dim() - 1)))
             sends = lines * g_from * r_from * (k - 1)

@@ -159,8 +159,10 @@ def roundtrip(x, mode: Optional[str], block: int, mask=None, bwd: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def all_gather_parts(x: torch.Tensor, group, mode: Optional[str], block: int,
-                     cls: str) -> List[torch.Tensor]:
+# under junction_gather (parallel/spatial.py) or stage_lineup
+# (parallel/sp_pipeline.py).
+def all_gather_parts(x: torch.Tensor, group,  # analysis: ok(unscoped-collective)
+                     mode: Optional[str], block: int, cls: str) -> List[torch.Tensor]:
     """Every rank's ``x``, in group-rank order, through the wire of ``mode``
     (exact when None); this rank's own part is decoded from its own
     encode too."""
@@ -180,8 +182,9 @@ def all_gather_parts(x: torch.Tensor, group, mode: Optional[str], block: int,
     return [decode(a, b, mode, block, x.shape[-1], x.dtype) for a, b in zip(qs, ss)]
 
 
-def all_to_all_rows(x: torch.Tensor, group, mode: Optional[str], block: int,
-                    cls: str) -> torch.Tensor:
+# the batch_split junction: under junction_gather (parallel/spatial.py).
+def all_to_all_rows(x: torch.Tensor, group,  # analysis: ok(unscoped-collective)
+                    mode: Optional[str], block: int, cls: str) -> torch.Tensor:
     """``all_to_all_single`` of ``x``'s dim 0 (``n`` equal chunks, chunk
     ``j`` to rank ``j``; chunk ``j`` of the result came from rank ``j``)
     through the wire of ``mode``."""
@@ -200,7 +203,8 @@ def all_to_all_rows(x: torch.Tensor, group, mode: Optional[str], block: int,
     return decode(rq, rs, mode, block, x.shape[-1], x.dtype)
 
 
-def _wait(ops) -> None:
+# send_recv's batch: under its callers' halo, respatial and handoff scopes.
+def _wait(ops) -> None:  # analysis: ok(unscoped-collective)
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -253,7 +257,8 @@ class _AllGather(torch.autograd.Function):
         return torch.cat(all_gather_parts(x, group, mode, block, cls), dim=dim)
 
     @staticmethod
-    def backward(ctx, g):
+    # stage_lineup's backward: tagged with the forward's scope (obs.scopes).
+    def backward(ctx, g):  # analysis: ok(unscoped-collective)
         n = dist.get_world_size(ctx.group)
         g = g.movedim(ctx.dim, 0).contiguous()
         b = (n - 1) / n * raw_nbytes(g.shape, g.dtype)

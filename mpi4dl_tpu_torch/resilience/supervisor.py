@@ -125,7 +125,8 @@ def process_rank() -> int:
 
         if dist.is_available() and dist.is_initialized():
             return dist.get_rank()
-    except Exception:  # noqa: BLE001 — no usable distributed runtime
+    except Exception:  # noqa: BLE001  # analysis: ok(swallow-except) — no usable
+        # distributed runtime: fall back to RANK below
         pass
     try:
         return int(os.environ.get("RANK", "0") or 0)
@@ -175,7 +176,8 @@ def write_crash_marker(path: str, *, phase: str, gstep: int = -1,
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
-    except Exception:  # noqa: BLE001 — deliberate: diagnostics never mask
+    except Exception:  # noqa: BLE001  # analysis: ok(swallow-except) — a marker
+        # that cannot be written must not mask the error the leg is dying of
         pass
 
 
@@ -698,7 +700,9 @@ def run_leg(family: str, model: str, argv: Sequence[str],
         raise
     card = card_identity()
     if card is not None:
-        print(f"leg rank {process_rank()}: card {json.dumps(card)}",
+        # The leg's card line goes to its stderr, which the fleet drills
+        # read (benchmarks/fleet_check.py).
+        print(f"leg rank {process_rank()}: card {json.dumps(card)}",  # analysis: ok(print-call)
               file=sys.stderr, flush=True)
     fleet_job = os.environ.get("MPI4DL_FLEET_JOB")
     if fleet_job:

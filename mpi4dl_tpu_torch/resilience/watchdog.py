@@ -87,7 +87,8 @@ def _cuda_device():
 
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             return torch.cuda.current_device()
-    except Exception:  # noqa: BLE001 — diagnostics must not raise
+    except Exception:  # noqa: BLE001  # analysis: ok(swallow-except) — diagnostics
+        # must not raise
         pass
     return None
 
