@@ -24,7 +24,25 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    1e-5·max(1, max|ref|), l rtol 1e-5, masked rows exact; K3's backward
    rtol 1e-4 / atol 1e-5·max|ref|).  (c) At the end of the run, every
    kernel that launched in it (``TALLY`` of ``ops/halo_conv.py`` and
-   ``ops/flash_attention.py``) is enrolled by a registry row.
+   ``ops/flash_attention.py``) is enrolled by a registry row.  (d) The
+   artifact gates: the recorded-collective contracts (``python -m
+   mpi4dl_tpu_torch.analysis contracts``, the eight families raw and
+   ``--quant int8``, every rank role on real CPU tensors on the ``fake``
+   group, the cross-rank verifier's counts riding in each contract) run
+   as CPU subprocesses from the end of phase 13 and are collected before
+   phase 28: exit 0 against the committed goldens, no drift, every gated int8
+   class at or under 0.55 of the raw bytes.
+1c. Kernel certification (``phase_kernelcheck``, after (c)): every kernel
+   symbol of both libraries printed with its registers, static and dynamic
+   shared memory, stack and spill bytes, threads, minimum blocks and the
+   blocks an SM holds at its launch's request (ptxas's report kept by the
+   build, the libraries' launch tables); ``contracts --engines kernels``
+   against ``goldens/kernels.json`` (no drift); and ``pallascheck`` over
+   every registry row (the resources of the kernels each row launches, as
+   the libraries' launch logs name them, and the NaN canary of its
+   outputs), whose findings must be exactly
+   ``KNOWN_KERNEL_FINDINGS`` (ROADMAP C5: a new finding, or one repaired,
+   fails the phase).
 2. Kernels: hold K1 (halo conv), K2 (fused relu→conv→BN-stats) and K1 as
    the dx of K2's backward against their plain PyTorch versions on the card,
    at the eight shapes of the main path (bf16) and at one fp32 ragged-tail
@@ -261,7 +279,7 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    ``resilience/{planner,supervisor}.py``), at phase 20's model and flags,
    ``--steps-per-epoch 2 --num-epochs 2``.  (a) The probe's estimate of the
    ``lp`` runner's step (fake tensors on the CPU, no CUDA context; run as a
-   subprocess beside phases 1-3) within 15% of the same step's
+   subprocess from the end of phase 3) within 15% of the same step's
    ``torch.cuda.max_memory_allocated`` on the card (the unsupervised runner
    in a process of its own).
    (b) ``python -m mpi4dl_tpu_torch.resilience supervise`` as a
@@ -285,7 +303,7 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    time; the per-scope device times add up to the trace's own total within
    1%; K1's and K2's profiled ms a step are printed beside phase 2's
    CUDA-graph ms.  (b) ``mem_probe --attribute`` of phase 25's ``lp`` step
-   on fake tensors (a subprocess beside phases 1-3) and the same
+   on fake tensors (a subprocess from the end of phase 3) and the same
    attribution of one step on the card with real tensors
    (``mem_probe.card_attribution``): coverage at least ``COVERAGE`` on both,
    the card tracker's peak within ``PROBE_TOLERANCE`` of
@@ -316,7 +334,7 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    ``lo``'s exit and to ``poison``'s quarantine.
 28. The measuring tools.  (a) The 8192² readiness probe
    (``benchmarks/readiness_8k.py``, fake tensors on the CPU, no CUDA
-   context; started beside phases 1-3) at the JAX tool's defaults,
+   context; started at the end of phase 3) at the JAX tool's defaults,
    AmoebaNet-D(18, 416) SP 4x4 x PP 2, gpipe, ``--spatial-until 9``, with
    ``--parts 2``: at the JAX default of one part neither package builds
    the step (the SP x PP step hands each stage an equal chunk of the
@@ -331,7 +349,7 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
    equals the meta-device count of the same step (phase 24's); its stderr
    reads 80 K1 and 80 K2 launches a step; its ms a step lies within
    ``BENCH_TOLERANCE`` of phase 3's median step.
-29. Phase 1b (c), then the kernels' JSON line, the card line, and last
+29. Phase 1b (c) and phase 1c, then the kernels' JSON line, the card line, and last
    the result line.  K1's
    and K2's ``launches``, ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are those of the SP AmoebaNet path (phase 8's run, per
@@ -342,9 +360,11 @@ Phases; any failure ends the run with a non-zero exit and nothing is caught:
 
 Phases 7-19 run between phases 3 and 4, phases 20-28 after phase 6, each
 printing its seconds.  The
-dry runs (meta device, CPU only; phase 24's count too), the probes of
-phases 25 and 26 and phase 28's readiness probe run in worker processes
-from the start, beside phases 1-3.
+dry runs (meta device, CPU only; phase 24's count too) run in worker
+processes from the start, beside phases 1-3; the probes of phases 25 and
+26 and phase 28's readiness probe from the end of phase 3 (phase 28 (b)
+holds the bench's host-bound step to phase 3's); phase 1b (d)'s contract
+gates from the end of phase 13 to phase 28.
 """
 
 from __future__ import annotations
@@ -603,6 +623,112 @@ def phase_analysis():
     print(f"analysis: {len(kr.REGISTRY)} registry rows {rows_s:.2f} s; phase {secs:.2f} s",
           flush=True)
     return secs
+
+
+# The artifact gates' phase.  ROADMAP C5: the fp32 rows of K1 and K2 launch
+# the CUDA-core conv kernel, whose 8-byte stack frame (8 B of spill stores,
+# 24 B of loads at 80 registers) the certifier's register-spill finds.
+KNOWN_KERNEL_FINDINGS = {
+    "{anon}::simt::halo_conv_kernel<float>:halo_conv2d:float32:register-spill",
+    "{anon}::simt::halo_conv_kernel<float>:halo_conv2d:fused_stats:float32:register-spill",
+}
+CONTRACT_JOBS = 1  # family processes of each contract gate at once (two gates at once)
+
+
+def contracts_start():
+    """(d) The contract gates, raw and int8, as CPU subprocesses:
+    ``[(label, process, JSON path)]`` and the start time."""
+    import tempfile
+
+    started = []
+    for label, extra in (("raw", []), ("int8", ["--quant", "int8"])):
+        fd, path = tempfile.mkstemp(prefix=f"chip_smoke_contracts_{label}_", suffix=".json")
+        os.close(fd)
+        cmd = [sys.executable, "-m", "mpi4dl_tpu_torch.analysis", "contracts", *extra,
+               "--jobs", str(CONTRACT_JOBS), "--out", path]
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        started.append((label, proc, path))
+    return started, time.time()
+
+
+def contracts_result(started) -> None:
+    """(d) Both contract gates exit 0 with no drift and no ratio breach;
+    each gate's seconds from its start to its report (the file's time)."""
+    gates, t0 = started
+    for label, proc, path in gates:
+        out, _ = proc.communicate()
+        secs = os.path.getmtime(path) - t0
+        with open(path) as f:
+            report = json.load(f)
+        os.unlink(path)
+        assert proc.returncode == 0, f"contracts {label} exit {proc.returncode}:\n{out[-4000:]}"
+        drift = report["drift"]
+        assert drift and all(d == [] for d in drift.values()), drift
+        ratios = report.get("quant_ratio", {})
+        assert all(not r["breaches"] for r in ratios.values()), ratios
+        worst = {}
+        for r in ratios.values():
+            for row in r["rows"]:
+                if row["gated"] and row["ratio"] is not None:
+                    worst[row["class"]] = max(worst.get(row["class"], 0), row["ratio"])
+        print(f"analysis: contracts {label}: {len(drift)} families clean (ircheck counts "
+              f"in each), its report {secs:.1f} s after the gates started"
+              + (f"; worst gated int8/raw byte ratio {worst}" if worst else ""), flush=True)
+
+
+def phase_kernelcheck():
+    """Phase 1c (module docstring): the kernels' resources, their golden and
+    the certifier over the registry rows, each gate a fresh process as a
+    user runs it."""
+    import tempfile
+
+    from mpi4dl_tpu_torch.analysis.contracts.__main__ import default_contracts_dir
+    from mpi4dl_tpu_torch.analysis.contracts.diff import diff_kernels_contract
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kernels_") as tmp:
+        gates = {}
+        # The kernels contract is extracted into tmp and diffed here against
+        # the golden, as `contracts --engines kernels` diffs it.
+        for name, argv in (
+                ("pallascheck", ["pallascheck", "--json"]),
+                ("contracts kernels", ["contracts", "--engines", "kernels", "--update",
+                                       "--dir", tmp])):
+            gates[name] = subprocess.Popen(
+                [sys.executable, "-m", "mpi4dl_tpu_torch.analysis", *argv], cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        outs = {name: p.communicate(timeout=600) for name, p in gates.items()}
+        assert gates["contracts kernels"].returncode == 0, outs["contracts kernels"]
+        with open(os.path.join(tmp, "kernels.json")) as f:
+            current = json.load(f)
+    for name, sym in sorted(current["symbols"].items()):
+        print(f"kernelcheck: {name} ({sym['lib']}): {sym['regs']} registers, "
+              f"{sym['smem_static']} B static + {sym['smem_dynamic']} B dynamic shared, "
+              f"stack {sym['stack']} B, spill {sym['spill_stores']} B stores / "
+              f"{sym['spill_loads']} B loads, {sym['threads']} threads, launch bounds "
+              f"min {sym['min_blocks']} blocks, {sym['blocks_per_sm']} blocks an SM",
+              flush=True)
+    for case, names in current["cases"].items():
+        print(f"kernelcheck: registry {case} launches {names}", flush=True)
+    with open(os.path.join(default_contracts_dir(), "kernels.json")) as f:
+        drifts = diff_kernels_contract(json.load(f), current)
+    assert drifts == [], drifts
+    out, err = outs["pallascheck"]
+    assert gates["pallascheck"].returncode in (0, 1), err[-3000:]
+    found = json.loads(out)["findings"]
+    keys = {f"{f['kernel']}:{f['case']}:{f['kind']}" for f in found}
+    for f in found:
+        print(f"kernelcheck: finding {f['kernel']}:{f['case']}:{f['kind']}: {f['message']}",
+              flush=True)
+    assert keys == KNOWN_KERNEL_FINDINGS, (sorted(keys), sorted(KNOWN_KERNEL_FINDINGS))
+    assert gates["pallascheck"].returncode == (1 if keys else 0)
+    print(f"kernelcheck: {len(current['symbols'])} symbols, kernels.json no drift; "
+          f"pallascheck {len(current['cases'])} rows: {len(found)} findings, exactly the "
+          f"known {len(KNOWN_KERNEL_FINDINGS)} (ROADMAP C5); {err.strip().splitlines()[-1]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def check_enrolled() -> None:
@@ -2890,7 +3016,7 @@ PROBE_TOLERANCE = 0.15  # the probe's estimate against the card's peak
 def probe_start(image: int, extra=()):
     """Phase 25's memory probe of the ``lp`` runner's step at phase 20's
     flags and ``image``² (``benchmarks.mem_probe``: fake tensors, on the
-    CPU, no CUDA context), started as a subprocess beside phases 1-3;
+    CPU, no CUDA context), started as a subprocess at the end of phase 3;
     ``(process, JSON path)``.  ``extra``: more probe flags (phase 26's
     ``--attribute``)."""
     import tempfile
@@ -3454,9 +3580,6 @@ def main() -> int:
         dry = [pool.submit(all_dry_runs), pool.submit(engine_dry_runs),
                pool.submit(ml_dry_runs)]
         cost_dry = pool.submit(runner_dry_cost)
-        probes = [probe_start(DATA_IMAGE), probe_start(SUP_OOM_IMAGE)]
-        attributed = probe_start(DATA_IMAGE, ["--attribute"])
-        readiness = readiness_start()
         secs = _build.build_kernels(verbose=True)
         card = card_line()
         print(f"build: {secs:.1f} s on {card}", flush=True)
@@ -3464,14 +3587,19 @@ def main() -> int:
         check_flash_sass(_build.library_path("block_flash"))
         tot = phase_kernels()
         launches = phase_slice()
+        # After phase 3: its host-bound step is phase 28 (b)'s reference,
+        # and these processes slow what they run beside.
+        probes = [probe_start(DATA_IMAGE), probe_start(SUP_OOM_IMAGE)]
+        attributed = probe_start(DATA_IMAGE, ["--attribute"])
+        readiness = readiness_start()
         preds = {k: v for d in dry for k, v in d.result().items()}
         cost_pred = cost_dry.result()
         print(f"dry runs: ready {time.perf_counter() - t0:.1f} s after the start",
               flush=True)
     finally:
         pool.shutdown()
-    # After the dry-run workers: the gate's subprocess then has the host's
-    # cores to itself (it imports torch).
+    # After the dry-run workers: the gate's subprocess then shares the
+    # host's cores with the probes only (it imports torch).
     t = time.perf_counter()
     phase_analysis()
     print(f"phase phase_analysis: {time.perf_counter() - t:.1f} s", flush=True)
@@ -3492,6 +3620,10 @@ def main() -> int:
     timed(phase_pp_checks)
     ldp_launches = timed(phase_ldp_slice, preds)
     timed(phase_card_vs_cpu)
+    # From here to phase 28: phase 3's and phase 28 (b)'s host-bound steps are
+    # compared, and the gates' processes slow what they run beside (phase 3
+    # and 13's CPU references most), even at nice 19.
+    contracts = contracts_start()
     timed(phase_kernels_ab)
     gems_launches = timed(phase_gems_sppp_slices, preds)
     timed(phase_engine_checks)
@@ -3509,10 +3641,12 @@ def main() -> int:
     timed(phase_supervisor, probes)
     timed(phase_instruments, tot, attributed)
     timed(phase_fleet)
+    contracts_result(contracts)
     timed(phase_tools, readiness, cost_pred)
     if args.profile:
         profile_steps(args.profile)
     check_enrolled()
+    timed(phase_kernelcheck)
     main_sp = "amoebanet_2048_sp_d2"
     tot["K1"]["launches"] = tot["K2"]["launches"] = 80
 

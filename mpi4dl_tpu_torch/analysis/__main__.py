@@ -5,9 +5,17 @@ With no paths it scans the port's tree: ``mpi4dl_tpu_torch/``, the port's
 tests ``tests/test_torch_*.py`` and ``chip_smoke.py`` (the env-hatch
 dead-flag direction needs the whole tree).  Exit status: 0 when no finding
 remains after the baseline, 1 otherwise, 2 on usage errors (a path that
-does not exist, a scan that finds no python file, and the JAX CLI's
-``contracts``, ``ircheck`` and ``pallascheck`` subcommands, which have no
-counterpart here yet).
+does not exist, a scan that finds no python file).
+
+The artifact gates are subcommands, as in the JAX CLI, each with the same
+exit codes: ``contracts`` (the recorded-collective contracts,
+``analysis/contracts``), ``ircheck`` (the cross-rank wire verifier,
+``analysis/ircheck``) and ``pallascheck`` (the Hopper kernel certifier,
+``analysis/pallascheck``)::
+
+    python -m mpi4dl_tpu_torch.analysis contracts [--update] [--quant int8]
+    python -m mpi4dl_tpu_torch.analysis ircheck [--families lp,sp]
+    python -m mpi4dl_tpu_torch.analysis pallascheck   # on a card
 """
 
 from __future__ import annotations
@@ -100,7 +108,16 @@ def _err(msg: str) -> int:
     return 2
 
 
+SUBCOMMANDS = ("contracts", "ircheck", "pallascheck")
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in SUBCOMMANDS:
+        import importlib
+
+        sub = importlib.import_module(f"mpi4dl_tpu_torch.analysis.{argv[0]}.__main__")
+        return sub.main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m mpi4dl_tpu_torch.analysis",
         description="Source-level analyzer of the PyTorch port (README: "
@@ -143,10 +160,10 @@ def main(argv=None) -> int:
     if args.prune_pragmas and (args.changed_only or args.paths or args.rule):
         return _err("--prune-pragmas needs a whole-tree all-rules scan and cannot be "
                     "combined with --changed-only, --rule or explicit paths")
-    for sub in ("contracts", "ircheck", "pallascheck"):
+    for sub in SUBCOMMANDS:
         if sub in args.paths:
-            return _err(f"the JAX analyzer's `{sub}` subcommand has no counterpart in "
-                        "the port's analyzer yet")
+            return _err(f"`{sub}` is a subcommand: give it first "
+                        f"(python -m mpi4dl_tpu_torch.analysis {sub} ...)")
     missing = [p for p in args.paths if not os.path.exists(p)]
     if missing:
         return _err(f"no such file or directory: {', '.join(missing)}")

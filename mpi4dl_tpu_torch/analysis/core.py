@@ -231,22 +231,21 @@ def parse_fallback(modname: str) -> Optional[SourceFile]:
 
 
 def extract_groups(files: Sequence[SourceFile]) -> Tuple[str, ...]:
-    """The mesh's group names: the string of each ``(name, dims)`` pair that
-    ``build_process_mesh`` loops over to create its groups."""
+    """The mesh's group names: the string of each ``(name, dims)`` pair of
+    ``mesh.py``'s ``GROUP_AXES``, the table ``build_process_mesh`` creates
+    its groups from."""
     src = find_file(files, f"{PACKAGE}/mesh.py") or parse_fallback(f"{PACKAGE}.mesh")
     if src is None:
         return ()
-    for fn in src.nodes(ast.FunctionDef):
-        if fn.name != "build_process_mesh":
-            continue
-        for loop in ast.walk(fn):
-            if not isinstance(loop, ast.For) or not isinstance(loop.iter, (ast.Tuple, ast.List)):
-                continue
-            names = [e.elts[0].value for e in loop.iter.elts
-                     if isinstance(e, ast.Tuple) and e.elts
-                     and isinstance(e.elts[0], ast.Constant) and isinstance(e.elts[0].value, str)]
-            if names:
-                return tuple(names)
+    for node in src.tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)
+                and node.targets[0].id == "GROUP_AXES"
+                and isinstance(node.value, (ast.Tuple, ast.List))):
+            return tuple(e.elts[0].value for e in node.value.elts
+                         if isinstance(e, ast.Tuple) and e.elts
+                         and isinstance(e.elts[0], ast.Constant)
+                         and isinstance(e.elts[0].value, str))
     return ()
 
 

@@ -1,6 +1,7 @@
 """SARIF 2.1.0 output for the analyzer's findings (counterpart of
-``mpi4dl_tpu/analysis/sarif.py``, without the artifact gates' anchors,
-which come with the port's artifact checks).
+``mpi4dl_tpu/analysis/sarif.py``): the source gate's violations at their
+lines, and the artifact gates' findings (``ircheck``, ``pallascheck``)
+anchored at the file that owns them, rule ids ``<gate>/<kind>``.
 
 Dependency-free and minimal: tool driver, rule index and results, the
 subset GitHub code scanning ingests.  Schema:
@@ -10,7 +11,7 @@ https://json.schemastore.org/sarif-2.1.0.
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _SCHEMA = "https://json.schemastore.org/sarif-2.1.0.json"
 
@@ -33,12 +34,22 @@ def _result(rule_id: str, message: str, uri: str, line: int,
     }
 
 
+def finding_results(findings: Sequence, gate: str,
+                    uri_of: Callable[[object], str]) -> List[Tuple[str, str, str, int]]:
+    """``(rule id, message, uri, line)`` of artifact-gate findings (objects
+    with ``kind`` and ``render()``), for :func:`sarif_log`'s ``extra``."""
+    return [(f"{gate}/{f.kind}", f.render(), uri_of(f), 1) for f in findings]
+
+
 def sarif_log(violations: Sequence = (),
-              rule_descriptions: Optional[Dict[str, str]] = None) -> dict:
-    """One SARIF log dict from analyzer ``Violation``s."""
+              rule_descriptions: Optional[Dict[str, str]] = None,
+              extra: Sequence[Tuple[str, str, str, int]] = ()) -> dict:
+    """One SARIF log dict from analyzer ``Violation``s and ``extra``
+    results (:func:`finding_results`)."""
     rule_index: Dict[str, int] = {}
     results: List[dict] = [_result(v.rule, v.message, v.path, v.line, rule_index)
                            for v in violations]
+    results += [_result(rule, msg, uri, line, rule_index) for rule, msg, uri, line in extra]
     descriptions = rule_descriptions or {}
     rules = [
         {"id": rid, **({"shortDescription": {"text": descriptions[rid]}}

@@ -106,6 +106,8 @@
 
 namespace {
 
+sm90::LaunchLog g_launch_log;  // every kernel this library launched
+
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -299,6 +301,7 @@ int launch(const float* q, const void* k, const void* v, float* o, float* m,
       (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((tq + BQ - 1) / BQ), (unsigned)bh);
+  sm90::note_launch(g_launch_log, (const void*)block_flash_kernel<Tkv>);
   block_flash_kernel<Tkv><<<grid, THREADS, SMEM_BYTES, stream>>>(
       q, static_cast<const Tkv*>(k), static_cast<const Tkv*>(v), o, m, l, tq,
       tk, d, causal, q_off, k_off);
@@ -990,6 +993,7 @@ int fwd(const Args& a) {
                                 Dims<KD>::FWD_SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)a.bh, (unsigned)((a.tq + BQ - 1) / BQ));
+  sm90::note_launch(g_launch_log, (const void*)block_flash_fwd_kernel<KD, VEC>);
   block_flash_fwd_kernel<KD, VEC>
       <<<grid, THREADS, Dims<KD>::FWD_SMEM, a.stream>>>(
       a.q, a.k, a.v, a.o, a.m_out, a.l_out, a.tq, a.tk, a.d, a.causal, a.q_off,
@@ -1008,6 +1012,7 @@ int bwd(const Args& a) {
   if (err != cudaSuccess) return (int)err;
   const dim3 kv_grid((unsigned)a.bh, (unsigned)((a.tk + BK - 1) / BK));
   if (a.tk > 0) {
+    sm90::note_launch(g_launch_log, (const void*)block_flash_bwd_kv_kernel<KD, VEC>);
     block_flash_bwd_kv_kernel<KD, VEC>
         <<<kv_grid, THREADS, Dims<KD>::KV_SMEM, a.stream>>>(
         a.q, a.k, a.v, a.do_hi, a.do_lo, a.m, a.dl, a.dk, a.dv, a.tq, a.tk,
@@ -1016,6 +1021,7 @@ int bwd(const Args& a) {
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 q_grid((unsigned)a.bh, (unsigned)((a.tq + BQ - 1) / BQ));
+  sm90::note_launch(g_launch_log, (const void*)block_flash_bwd_q_kernel<KD, VEC>);
   block_flash_bwd_q_kernel<KD, VEC>
       <<<q_grid, THREADS, Dims<KD>::DQ_SMEM, a.stream>>>(
       a.q, a.k, a.v, a.do_hi, a.do_lo, a.m, a.dl, a.dq, a.tq, a.tk, a.d,
@@ -1049,11 +1055,54 @@ int dispatch(const Args& a, bool backward) {
   return a.d <= 64 ? dispatch_vec<4>(a, backward) : dispatch_vec<8>(a, backward);
 }
 
+template <int KD, int VEC>
+void rows_of(sm90::LaunchRow* out) {
+  out[0] = {(const void*)block_flash_fwd_kernel<KD, VEC>, THREADS, 2, Dims<KD>::FWD_SMEM};
+  out[1] = {(const void*)block_flash_bwd_kv_kernel<KD, VEC>, THREADS, 2,
+            Dims<KD>::KV_SMEM};
+  out[2] = {(const void*)block_flash_bwd_q_kernel<KD, VEC>, THREADS, 2, Dims<KD>::DQ_SMEM};
+}
+
 }  // namespace tc
+
+// Every kernel the library's launchers can launch (see sm90::LaunchRow).
+constexpr int NUM_LAUNCH_ROWS = 3 + 3 * 6;
+
+void launch_rows(sm90::LaunchRow* out) {
+  out[0] = {(const void*)simt::block_flash_kernel<float>, simt::THREADS, 0,
+            (int)simt::SMEM_BYTES};
+  out[1] = {(const void*)simt::block_flash_kernel<__nv_bfloat16>, simt::THREADS, 0,
+            (int)simt::SMEM_BYTES};
+  out[2] = {(const void*)tc::block_flash_split_kernel, 256, 0, 0};
+  tc::rows_of<4, 8>(out + 3);
+  tc::rows_of<4, 4>(out + 6);
+  tc::rows_of<4, 1>(out + 9);
+  tc::rows_of<8, 8>(out + 12);
+  tc::rows_of<8, 4>(out + 15);
+  tc::rows_of<8, 1>(out + 18);
+}
 
 }  // namespace
 
 extern "C" {
+
+// The library's launch table (sm90::launch_table_row): i < 0 returns the
+// number of rows.
+int block_flash_launch_table(int i, const char** symbol, int* threads, int* min_blocks,
+                             int* dyn_smem, int* blocks_per_sm) {
+  sm90::LaunchRow rows[NUM_LAUNCH_ROWS];
+  launch_rows(rows);
+  return sm90::launch_table_row(rows, NUM_LAUNCH_ROWS, i, symbol, threads, min_blocks,
+                                dyn_smem, blocks_per_sm);
+}
+
+// The kernels the library launched since the last clear
+// (sm90::launch_log_row): i < 0 returns the number of entries.
+int block_flash_launch_log(int i, const char** symbol) {
+  return sm90::launch_log_row(g_launch_log, i, symbol);
+}
+
+void block_flash_launch_log_clear() { sm90::clear_launch_log(g_launch_log); }
 
 // Largest head dimension the kernels take.
 int block_flash_max_d() { return simt::D_MAX; }
@@ -1137,6 +1186,7 @@ int block_flash_bwd_launch(const void* q, const void* k, const void* v,
   }
   const long long n = (long long)bh * tq * d;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  sm90::note_launch(g_launch_log, (const void*)tc::block_flash_split_kernel);
   tc::block_flash_split_kernel<<<blocks, 256, 0, st>>>(
       static_cast<const float*>(d_o), static_cast<__nv_bfloat16*>(do_hi),
       static_cast<__nv_bfloat16*>(do_lo), n);

@@ -96,6 +96,8 @@
 
 namespace {
 
+sm90::LaunchLog g_launch_log;  // every kernel this library launched
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -280,6 +282,7 @@ int launch(const void* x, const void* w, void* y, float* psum, float* psumsq,
            int h0, int h1, int w0, int w1, cudaStream_t stream) {
   const long long m_total = (long long)n * (hp - kh + 1) * (wp - kw + 1);
   const dim3 grid((unsigned)((m_total + BM - 1) / BM), (cout + BN - 1) / BN);
+  sm90::note_launch(g_launch_log, (const void*)halo_conv_kernel<Tout>);
   halo_conv_kernel<Tout><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<Tout*>(y), psum, psumsq, n, hp, wp, cin, kh, kw, cout, relu,
@@ -770,6 +773,9 @@ int launch_cfg(const Args& a) {
       (long long)a.n * (a.hp - a.kh + 1) * (a.wp - a.kw + 1);
   const dim3 grid((unsigned)((m_total + C::BM - 1) / C::BM),
                   (a.cout + C::BN - 1) / C::BN);
+  sm90::note_launch(g_launch_log,
+                    (const void*)halo_conv_kernel<C::WARPS_M, C::WARPS_N, C::MI,
+                                                  C::NI, C::KS, VEC, Tout>);
   halo_conv_kernel<C::WARPS_M, C::WARPS_N, C::MI, C::NI, C::KS, VEC, Tout>
       <<<grid, C::THREADS, C::SMEM, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.x),
@@ -800,11 +806,58 @@ int launch(int cfg, const Args& a) {
   }
 }
 
+template <typename C, int VEC, typename Tout>
+sm90::LaunchRow row() {
+  return {(const void*)halo_conv_kernel<C::WARPS_M, C::WARPS_N, C::MI, C::NI, C::KS,
+                                        VEC, Tout>,
+          C::THREADS, 2, C::SMEM};
+}
+
+template <int VEC, typename Tout>
+void rows_of(sm90::LaunchRow* out) {
+  out[0] = row<Tile0, VEC, Tout>();
+  out[1] = row<Tile1, VEC, Tout>();
+  out[2] = row<Tile2, VEC, Tout>();
+  out[3] = row<Tile3, VEC, Tout>();
+}
+
 }  // namespace tc
+
+// Every kernel halo_conv2d_launch can launch (see sm90::LaunchRow).
+constexpr int NUM_LAUNCH_ROWS = 2 + 6 * tc::NUM_TILES;
+
+void launch_rows(sm90::LaunchRow* out) {
+  out[0] = {(const void*)simt::halo_conv_kernel<float>, simt::THREADS, 0, 0};
+  out[1] = {(const void*)simt::halo_conv_kernel<__nv_bfloat16>, simt::THREADS, 0, 0};
+  tc::rows_of<8, float>(out + 2);
+  tc::rows_of<4, float>(out + 6);
+  tc::rows_of<1, float>(out + 10);
+  tc::rows_of<8, __nv_bfloat16>(out + 14);
+  tc::rows_of<4, __nv_bfloat16>(out + 18);
+  tc::rows_of<1, __nv_bfloat16>(out + 22);
+}
 
 }  // namespace
 
 extern "C" {
+
+// The library's launch table (sm90::launch_table_row): i < 0 returns the
+// number of rows.
+int halo_conv_launch_table(int i, const char** symbol, int* threads,
+                             int* min_blocks, int* dyn_smem, int* blocks_per_sm) {
+  sm90::LaunchRow rows[NUM_LAUNCH_ROWS];
+  launch_rows(rows);
+  return sm90::launch_table_row(rows, NUM_LAUNCH_ROWS, i, symbol, threads, min_blocks,
+                                dyn_smem, blocks_per_sm);
+}
+
+// The kernels the library launched since the last clear
+// (sm90::launch_log_row): i < 0 returns the number of entries.
+int halo_conv_launch_log(int i, const char** symbol) {
+  return sm90::launch_log_row(g_launch_log, i, symbol);
+}
+
+void halo_conv_launch_log_clear() { sm90::clear_launch_log(g_launch_log); }
 
 // Rows of K2's partial-statistics scratch for a launch: one per pixel tile
 // of the tile that the launch takes on a card of `sms` SMs (64 pixels for

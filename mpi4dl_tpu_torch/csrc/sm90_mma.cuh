@@ -1,7 +1,9 @@
 // Tensor-core building blocks shared by the port's sm_90a kernels
 // (halo_conv.cu, block_flash.cu): cp.async copies into shared memory,
 // ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 with fp32
-// accumulation, and the once-per-device opt-in to dynamic shared memory.
+// accumulation, the once-per-device opt-in to dynamic shared memory, the
+// launch-table row each library's exported query returns, and the log of
+// the kernels a library launched.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = threadIdx.x % 32,
 // g = lane / 4, c = 2 * (lane % 4)):
@@ -97,6 +99,78 @@ cudaError_t opt_in_smem(K kernel, int bytes,
                              bytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
   return err;
+}
+
+// One row of a library's launch table: a kernel the library launches, the
+// threads and minimum blocks of its __launch_bounds__ (0: none stated) and
+// the dynamic shared memory its launch requests.  Each library exports
+// <name>_launch_table over its rows (launch_table_row below), which the
+// kernel certifier (mpi4dl_tpu_torch/analysis/pallascheck) reads.
+struct LaunchRow {
+  const void* fn;
+  int threads;
+  int min_blocks;
+  int dyn_smem;
+};
+
+// Row i of `rows` (n of them): i < 0 returns n and touches nothing; else the
+// row's mangled symbol, threads, minimum blocks, dynamic shared memory and
+// the blocks an SM holds at that request, returning a cudaError_t code (0 =
+// success, cudaErrorInvalidValue for an i past the end).
+inline int launch_table_row(const LaunchRow* rows, int n, int i, const char** symbol,
+                            int* threads, int* min_blocks, int* dyn_smem,
+                            int* blocks_per_sm) {
+  if (i < 0) return n;
+  if (i >= n) return (int)cudaErrorInvalidValue;
+  const LaunchRow& r = rows[i];
+  *threads = r.threads;
+  *min_blocks = r.min_blocks;
+  *dyn_smem = r.dyn_smem;
+  cudaError_t err = cudaFuncGetName(symbol, r.fn);
+  if (err == cudaSuccess && r.dyn_smem > 48 * 1024)
+    err = cudaFuncSetAttribute(r.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               r.dyn_smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, r.fn, r.threads,
+                                                        (size_t)r.dyn_smem);
+  return (int)err;
+}
+
+// The kernels a library launched since the log was last cleared, each
+// noted once: every launch site calls note_launch before its launch, and
+// the library exports <name>_launch_log (launch_log_row below) and
+// <name>_launch_log_clear, from which the kernel certifier learns which
+// kernels a call launches.  A race between two launching threads may note
+// a kernel twice; readers take the entries as a set.
+struct LaunchLog {
+  static constexpr int CAP = 64;
+  std::atomic<const void*> fn[CAP];
+  std::atomic<int> n;
+};
+
+inline void note_launch(LaunchLog& log, const void* fn) {
+  const int n = log.n.load(std::memory_order_acquire);
+  for (int i = 0; i < n && i < LaunchLog::CAP; ++i)
+    if (log.fn[i].load(std::memory_order_relaxed) == fn) return;
+  const int i = log.n.fetch_add(1, std::memory_order_acq_rel);
+  if (i < LaunchLog::CAP) log.fn[i].store(fn, std::memory_order_release);
+}
+
+inline void clear_launch_log(LaunchLog& log) {
+  log.n.store(0, std::memory_order_release);
+}
+
+// Entry i of `log`: i < 0 returns the number of entries and touches
+// nothing; else the entry's mangled symbol, returning a cudaError_t code
+// (cudaErrorInvalidValue for an i past the end).
+inline int launch_log_row(const LaunchLog& log, int i, const char** symbol) {
+  const int n = log.n.load(std::memory_order_acquire);
+  const int rows = n < LaunchLog::CAP ? n : LaunchLog::CAP;
+  if (i < 0) return rows;
+  if (i >= rows) return (int)cudaErrorInvalidValue;
+  const void* fn = log.fn[i].load(std::memory_order_acquire);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncGetName(symbol, fn);
 }
 
 }  // namespace sm90

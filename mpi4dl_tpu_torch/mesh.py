@@ -18,7 +18,7 @@ import itertools
 import math
 import os
 from datetime import timedelta
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -105,6 +105,19 @@ def _groups(spec: MeshSpec, vary: Tuple[int, ...]):
     return out
 
 
+# The process groups of a mesh, by dimension: the axes (of ``spec.shape``)
+# along which a group's ranks differ.
+GROUP_AXES = (("tiles", (2, 3)), ("data", (0,)), ("stage", (1,)),
+              ("data_tiles", (0, 2, 3)), ("data_stage", (0, 1)))
+
+
+def group_tables(spec: MeshSpec) -> Dict[str, List[List[int]]]:
+    """Every rank's groups of ``spec`` by dimension, in the order
+    :func:`build_process_mesh` creates them: ``{dim: [sorted ranks, ...]}``
+    (a dimension of one rank a group lists one-rank groups)."""
+    return {name: _groups(spec, vary) for name, vary in GROUP_AXES}
+
+
 def build_process_mesh(spec: MeshSpec) -> ProcessMesh:
     """This rank's groups of ``spec`` over the default group, which must
     have exactly ``spec.size`` ranks.  Every rank creates every group in
@@ -118,9 +131,8 @@ def build_process_mesh(spec: MeshSpec) -> ProcessMesh:
     rank = dist.get_rank()
     d = rank // (spec.stage * spec.sph * spec.spw)
     mine = {}
-    for name, vary in (("tiles", (2, 3)), ("data", (0,)), ("stage", (1,)),
-                       ("data_tiles", (0, 2, 3)), ("data_stage", (0, 1))):
-        for ranks in _groups(spec, vary):
+    for name, groups in group_tables(spec).items():
+        for ranks in groups:
             if len(ranks) == world:
                 g = dist.group.WORLD
             elif len(ranks) > 1:

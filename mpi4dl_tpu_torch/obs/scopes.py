@@ -10,7 +10,9 @@ optimizer step's dispatch, named ``<name>#<step>`` (the supervised loop
 wraps each step in it while a profile is being taken).
 
 :func:`recording_scopes` collects the names that :func:`scope` opens
-inside it, from any thread (the cost record's ``tick_scopes``).
+inside it, from any thread (the cost record's ``tick_scopes``);
+:func:`recording_paths` collects the scope paths open at each opening,
+while instrumenting (the contract gate's ``scopes``).
 
 **The scope path.**  The JAX package reads each op's scope from the
 compiled program's ``op_name`` metadata, where a backward op carries the
@@ -47,6 +49,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 _SEEN: Optional[Set[str]] = None
+_PATHS: Optional[Set[str]] = None
 _KEY = "scope"
 _TLS = threading.local()
 _ACTIVE = [0]  # nesting depth of instrumenting()
@@ -65,6 +68,8 @@ def scope(name: str) -> ContextManager[None]:
 def _stacked(name: str) -> Iterator[None]:
     stack = _stack()
     stack.append((name, torch._C._current_autograd_node()))
+    if _PATHS is not None:
+        _PATHS.add(current_path())
     try:
         with torch.profiler.record_function(name):
             yield
@@ -204,6 +209,18 @@ def recording_scopes() -> Iterator[Set[str]]:
         yield _SEEN
     finally:
         _SEEN = prev
+
+
+@contextlib.contextmanager
+def recording_paths() -> Iterator[Set[str]]:
+    """Yield the set of scope paths open where :func:`scope` opens a name
+    inside the block (only while :func:`instrumenting`)."""
+    global _PATHS
+    prev, _PATHS = _PATHS, set()
+    try:
+        yield _PATHS
+    finally:
+        _PATHS = prev
 
 
 def step_annotation(step_num: int, name: str = "train") -> ContextManager[None]:

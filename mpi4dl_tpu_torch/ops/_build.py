@@ -7,6 +7,10 @@ its own into ``build/kernels/lib<name>-<hash>.so`` at the repository root
 or header is rebuilt and an unchanged one is loaded as it is.  Nothing
 is built or loaded at import: the first launch does it, or
 :func:`build_kernels` (which starts one ``nvcc`` per source, all at once).
+Beside each library the build keeps ptxas's register, shared-memory and
+spill report (``-Xptxas -v``) as ``lib<name>-<hash>.ptxas.txt``
+(:func:`ptxas_report_path`), which the kernel certifier
+(``analysis/pallascheck``) reads without rebuilding.
 """
 
 from __future__ import annotations
@@ -54,6 +58,12 @@ def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def ptxas_report_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """ptxas's report of the build of :func:`library_path`."""
+    lib = library_path(name, defines)
+    return lib.with_name(lib.name[: -len(".so")] + ".ptxas.txt")
+
+
 def build_kernels(names: Optional[Iterable[str]] = None,
                   verbose: bool = False, defines: Tuple[str, ...] = ()) -> float:
     """Compile every missing library among ``names`` (default: all), one
@@ -77,6 +87,10 @@ def build_kernels(names: Optional[Iterable[str]] = None,
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        report = ptxas_report_path(name, defines)
+        part = report.with_name(f"{report.name}.{os.getpid()}.tmp")
+        part.write_text(log)
+        os.replace(part, report)
         if verbose:
             # The caller asked for ptxas's report on stdout, where
             # chip_smoke.py's readers find it.

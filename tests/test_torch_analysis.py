@@ -594,7 +594,11 @@ def test_cli_exit_codes_json_and_list(tmp_path, capsys):
     capsys.readouterr()
     assert cli.main(["--list-rules"]) == 0
     assert len(capsys.readouterr().out.splitlines()) == 11
-    for argv in (["--rule", "nope", str(good)], ["contracts"], ["--json", "ircheck"],
+    # The artifact gates dispatch as subcommands (usage errors exit 2; the
+    # kernel certifier finds no ptxas report here); named after a flag, a
+    # subcommand is a usage error of the source gate.
+    for argv in (["--rule", "nope", str(good)], ["contracts", "--engines", "nope"],
+                 ["--json", "ircheck"], ["ircheck", "--families", "nope"],
                  ["pallascheck"], [str(tmp_path / "missing.py")],
                  [str(tmp_path / "mpi4dl_tpu_torch" / "x")]):
         assert cli.main(argv) == 2, argv
